@@ -11,8 +11,9 @@ line:
 
   env          what the host offers (card, capability, power limit,
                torch / CUDA / nvcc versions)
-  build        seconds `nvcc` took to build the sweep_scan library from
-               the sources in this checkout
+  build        seconds `nvcc` took to build each kernel library
+               (sweep_scan, flash_attention, ssd) from the sources in
+               this checkout, one `nvcc` per source, all started together
   kernel_check sweep_scan kernel vs its plain PyTorch version ON THE
                CARD, `torch.equal` on makespan and end (tolerance: none,
                the arithmetic is max and + in f64 in one order), over
@@ -27,18 +28,34 @@ line:
                scalar loop on the host, and a warm re-sweep
   exact_path   `explore` with exact verification on a small sweep, held
                against the port's `ref_sim`; `Predictor` ref vs exact
-  {"kernels": [...]}  one entry per kernel: launches counted during the
-               main path, its time at the main path's largest bucket
-               beside its byte bound and the chain bound, and the plain
-               version's time beside the kernel's (results compared,
-               `torch.equal`) at the largest main-path bucket the plain
-               version can walk in seconds
+  model_kernel_check  flash_attention and ssd kernels vs their plain
+               PyTorch versions ON THE CARD, f32 and bf16, on the
+               reference's kernel-test shapes and zamba2-2.7b's
+  model_path   the serving path at full width and depth: zamba2-2.7b
+               (54 layers, d_model 2560, vocab 32000, random weights from
+               a seeded generator), 8 requests of 512-token prompts
+               prefilled through the kernels and compared with the plain
+               path (argmax agreement held in f32; in bf16 reported beside
+               the plain path's own rounding spread), every kernel call
+               held in situ against its plain version, f32 serve steps
+               held against the f32 prefill, served in bf16 as
+               `examples/serve_batch.py` serves (teacher-forced steps,
+               then 64 greedy tokens), then one prefill of 32768 tokens
+               (batch cut from 32 to 1), its kernel calls held in situ
+               against the model's own plain path in bf16, and its first
+               K2 and K3 calls again in f32
+  {"kernels": [...]}  one entry per kernel: launches counted during its
+               path, its time at the path's largest shape beside its
+               bound, the plain version's time beside the kernel's at a
+               shape the plain version can take, and a library call's
+               time where one PyTorch call computes the same function
   <card name, power limit>   as nvidia-smi prints them
   {"ok": true, "device": {...}}   the last line
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -55,6 +72,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # power limit the card runs under (printed beside it)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F64_FLOPS = 33.5e12
+PEAK_BF16_FLOPS = 989e12          # dense tensor-core rate
 BYTES_PER_OPROW = 44      # res 4, dur 8, lag 8, deps 16 read; end 8 written
 FLOPS_PER_OPROW = 8       # five max + three add per op row
 MAXD = 4
@@ -75,6 +93,41 @@ KB = 1024
 BOUNDARY = [(1, 1, 1, 0), (7, 3, 4, 1), (8, 2, 8, 2), (9, 5, 3, 3),
             (19, 4, 6, 4)]
 MULTI_TILE = [(64, 4, 8, 64), (600, 4, 8, 600), (1024, 3, 8, 1024)]
+
+# the serving path: zamba2-2.7b at full width and depth. Requests are
+# served as `examples/serve_batch.py` serves them, 8 prompts of 512
+# tokens; the long prefill is the repo's prefill_32k length with its
+# batch cut to 1 (one card).
+MODEL = "zamba2-2.7b"
+N_REQUESTS, PROMPT_LEN, GEN_LEN = 8, 512, 64
+LONG_BATCH = 1
+# argmax agreement of the kernel path with the plain path over the
+# prompt positions, held in f32. In bf16 the two paths round at other
+# places and 54 layers amplify one-ulp differences until the argmax is
+# a coin toss for any random weights, so there it is only reported,
+# beside the plain path's agreement with itself under a change of
+# rounding alone (another SSD chunk length); every kernel call is also
+# held in situ.
+MIN_ARGMAX_AGREEMENT = 0.98
+# f32 serve steps over the first DECODE_CHECK_LEN prompt positions, held
+# against the f32 prefill at those positions: argmax agreement at
+# MIN_ARGMAX_AGREEMENT and max |decode - prefill| <= DECODE_TOL x max
+# |prefill logit|. The two compute the same function in another order
+# (a recurrence for the chunked SSD, one cached row for the flash
+# attention); 54 layers carry f32 rounding to ~3e-3 of the largest logit
+# (the kernel and plain prefills differ by that, H100 80GB HBM3 at 700 W),
+# while a wrong cache slot or state moves logits by their whole scale.
+DECODE_CHECK_LEN = 64
+DECODE_TOL = 2e-2
+# (B, S, H, K, hd, window): tests/test_kernels.py's flash-attention rows
+# and zamba2's request shape
+FA_CHECK = [(2, 256, 4, 2, 64, 0), (1, 128, 4, 4, 32, 0),
+            (2, 256, 8, 2, 64, 64), (1, 512, 2, 1, 128, 128),
+            (3, 192, 6, 3, 16, 0), (2, 512, 32, 32, 80, 0)]
+# (B, S, H, P, N, chunk): tests/test_kernels.py's SSD rows and zamba2's
+SSD_CHECK = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 16, 8, 64),
+             (2, 96, 3, 8, 4, 32), (1, 64, 8, 64, 32, 64),
+             (2, 512, 80, 64, 64, 256)]
 
 
 def emit(obj) -> None:
@@ -116,14 +169,25 @@ def phase_env(env):
     return info
 
 
-def phase_build(kernel_mod):
+def phase_build(kernel_mods):
+    """Each kernel module's own `load()` (one `nvcc` per source, then
+    the `ctypes` binding), all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(mod):
+        t0 = time.perf_counter()
+        mod.load()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    kernel_mod.load()
-    secs = time.perf_counter() - t0
-    emit({"phase": "build", "library": "sweep_scan",
-          "source": "src/repro_torch/kernels/sweep_scan/csrc/sweep_scan.cu",
-          "seconds": secs})
-    return secs
+    with ThreadPoolExecutor(len(kernel_mods)) as pool:
+        secs = list(pool.map(one, kernel_mods))
+    wall = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": wall, "libraries": [
+        {"library": mod.SOURCE.parent.parent.name,
+         "source": str(mod.SOURCE.relative_to(ROOT)), "seconds": s}
+        for mod, s in zip(kernel_mods, secs)]})
+    return wall
 
 
 def phase_kernel_check(ops_mod, kernel_mod):
@@ -431,11 +495,604 @@ def phase_exact_path(core):
           "seconds": time.perf_counter() - t0})
 
 
-def kernels_line(ops_mod, launches, timing, max_abs_err):
+def fa_inputs(B, S, H, K, hd, dtype, gen):
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for shape in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd)))
+
+
+def ssd_inputs(B, S, H, P, N, dtype, gen):
+    """Inputs as the reference's SSD tests draw them: x, b, c scaled by
+    0.5, dt = softplus(normal), a = exp(uniform[0, 1))."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = (randn(B, S, H, P) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(randn(B, S, H))
+    a = torch.exp(torch.rand(H, generator=gen, device="cuda"))
+    b = (randn(B, S, N) * 0.5).to(dtype)
+    c = (randn(B, S, N) * 0.5).to(dtype)
+    return x, dt, a, b, c
+
+
+def check_close(tag, got, want, rtol, atol):
+    """Raise unless |got - want| <= atol + rtol |want| everywhere;
+    returns the largest absolute difference."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    excess = float(((got - want).abs() - (atol + rtol * want.abs())).max())
+    if not (torch.isfinite(got).all() and excess <= 0.0):
+        raise AssertionError(f"{tag}: kernel != plain version, max abs err "
+                             f"{err} (rtol={rtol}, atol={atol})")
+    return err
+
+
+def phase_model_kernel_check(fa_ops, ssd_ops):
+    """flash_attention and ssd kernels vs their plain versions on the
+    card. Tolerances: the reference's `_tol` (f32 1e-5, bf16 2e-2: both
+    sides compute in f32 in another order, bf16 outputs are rounded
+    once), and the SSD state at 1e-4 / 5e-2 as the reference holds its
+    own kernel. Returns the largest absolute difference per kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = {"flash_attention": 0.0, "ssd": 0.0}
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        rt = 2e-2 if bf16 else 1e-5
+        for B, S, H, K, hd, win in FA_CHECK:
+            q, k, v = fa_inputs(B, S, H, K, hd, dtype, gen)
+            want = fa_ops.flash_attention(q, k, v, window=win, use_kernel=False)
+            got = fa_ops.flash_attention(q, k, v, window=win, use_kernel=True)
+            torch.cuda.synchronize()
+            tag = f"flash_attention {dtype} B,S,H,K,hd,win={B},{S},{H},{K},{hd},{win}"
+            err = check_close(tag, got, want, rt, rt)
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            cases.append({"kernel": "flash_attention", "dtype": str(dtype),
+                          "shape": [B, S, H, K, hd, win], "tol": rt,
+                          "max_abs_err": err})
+        for B, S, H, P, N, chunk in SSD_CHECK:
+            x, dt, a, b, c = ssd_inputs(B, S, H, P, N, dtype, gen)
+            y0, h0 = ssd_ops.ssd(x, dt, a, b, c, chunk=chunk, use_kernel=False)
+            y1, h1 = ssd_ops.ssd(x, dt, a, b, c, chunk=chunk, use_kernel=True)
+            torch.cuda.synchronize()
+            tag = f"ssd {dtype} B,S,H,P,N,chunk={B},{S},{H},{P},{N},{chunk}"
+            ht = 5e-2 if bf16 else 1e-4
+            err = check_close(tag + " y", y1, y0, rt, rt)
+            herr = check_close(tag + " h", h1, h0, ht, ht)
+            worst["ssd"] = max(worst["ssd"], err, herr)
+            cases.append({"kernel": "ssd", "dtype": str(dtype),
+                          "shape": [B, S, H, P, N, chunk], "tol_y": rt,
+                          "tol_h": ht, "max_abs_err_y": err,
+                          "max_abs_err_h": herr})
+    emit({"phase": "model_kernel_check", "cases": len(cases),
+          "max_abs_err": worst, "detail": cases})
+    return worst
+
+
+def reset_counts(ops_mods):
+    for m in ops_mods:
+        m.reset_launch_count()
+
+
+class InSituCheck:
+    """For one model forward, every flash_attention / ssd kernel launch
+    the model makes is also run through the plain version on the same
+    inputs and compared: the kernels held at the real activations of the
+    full-size model, where a comparison of final logits cannot reach
+    through 54 layers in bf16. The bound is relative to the tensor's
+    scale, max |kernel - plain| <= tol * max |plain|: an element that is a
+    near-cancelling sum of large terms carries an absolute rounding error
+    of eps times those terms in either version. The plain runs launch
+    nothing and count nothing. Restores the wrappers on exit.
+
+    ``plain`` replaces the wrappers' plain versions by another pair,
+    ``(fa(q, k, v, window), ssd(x, dt, a, b, c, chunk))``: at lengths
+    where `attention_ref`'s S x S scores or `ssd_ref`'s S sequential
+    steps do not fit, the model's own plain path (`flash_mha`,
+    `ssd_chunked`). With ``capture`` the inputs of each kernel's first
+    call are kept in `captured`, to be held again in f32
+    (`hold_captured_f32`)."""
+
+    def __init__(self, fa_ops, ssd_ops, fa_tol, ssd_tol, h_tol, plain=None,
+                 capture=False):
+        self.fa_ops, self.ssd_ops = fa_ops, ssd_ops
+        self.tols = {"fa": fa_tol, "ssd": ssd_tol, "h": h_tol}
+        self.plain = plain
+        self.captured = {} if capture else None
+        self.calls = {"flash_attention": 0, "ssd": 0}
+        self.worst = {"flash_attention": 0.0, "ssd": 0.0}
+
+    @staticmethod
+    def check(tag, got, want, tol):
+        got, want = got.float(), want.float()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not (torch.isfinite(got).all() and err <= tol * scale):
+            raise AssertionError(f"{tag}: kernel != plain version, max abs "
+                                 f"err {err} > {tol} x max |plain| {scale}")
+        return err / scale if scale else 0.0
+
+    def __enter__(self):
+        fa, ssd = self.orig = (self.fa_ops.flash_attention, self.ssd_ops.ssd)
+        t = self.tols
+        fa_plain, ssd_plain = self._plain = self.plain or (
+            lambda q, k, v, window: fa(q, k, v, window=window,
+                                       use_kernel=False),
+            lambda x, dt, a, b, c, chunk: ssd(x, dt, a, b, c, chunk=chunk,
+                                              use_kernel=False))
+
+        def keep(name, args):
+            if self.captured is not None and name not in self.captured:
+                self.captured[name] = tuple(
+                    x.clone() if torch.is_tensor(x) else x for x in args)
+
+        def fa_checked(q, k, v, *, causal=True, window=0, use_kernel):
+            assert causal, "the model's attention is causal"
+            out = fa(q, k, v, causal=causal, window=window,
+                     use_kernel=use_kernel)
+            want = fa_plain(q, k, v, window)
+            err = self.check(f"flash_attention in situ, call "
+                             f"{self.calls['flash_attention']}", out, want,
+                             t["fa"])
+            keep("flash_attention", (q, k, v, window))
+            self._note("flash_attention", err)
+            return out
+
+        def ssd_checked(x, dt, a, b, c, *, chunk=128, use_kernel):
+            y, h = ssd(x, dt, a, b, c, chunk=chunk, use_kernel=use_kernel)
+            y0, h0 = ssd_plain(x, dt, a, b, c, chunk)
+            keep("ssd", (x, dt, a, b, c, chunk))
+            tag = f"ssd in situ, call {self.calls['ssd']}"
+            err = max(self.check(tag + " y", y, y0, t["ssd"]),
+                      self.check(tag + " h", h, h0, t["h"]))
+            self._note("ssd", err)
+            return y, h
+
+        self.fa_ops.flash_attention = fa_checked
+        self.ssd_ops.ssd = ssd_checked
+        return self
+
+    def _note(self, name, err):
+        self.calls[name] += 1
+        self.worst[name] = max(self.worst[name], err)
+
+    def __exit__(self, *exc):
+        self.fa_ops.flash_attention, self.ssd_ops.ssd = self.orig
+        return False
+
+    def hold_captured_f32(self, fa_tol, ssd_tol, h_tol):
+        """After the `with`: each captured first call again with its
+        inputs cast to f32, under f32 tolerances. K2 is held against this
+        check's plain attention; K3 against the wrapper's plain version,
+        the sequential recurrence, because the chunked plain path sums
+        its log decays in f32 and at 128 chunks of 256 steps strays
+        further than 1e-5 itself (the kernel sums them in f64); how far
+        is reported beside. Returns the largest error over max |plain|
+        per kernel. These launches are a comparison's: read the path's
+        launch counts before."""
+        fa, ssd = self.orig
+        fa_plain, ssd_chunked_plain = self._plain
+        f32 = torch.float32
+        q, k, v, window = (x.to(f32) if torch.is_tensor(x) else x
+                           for x in self.captured["flash_attention"])
+        err_fa = self.check("flash_attention f32, first call", fa(
+            q, k, v, window=window, use_kernel=True),
+            fa_plain(q, k, v, window), fa_tol)
+        x, dt, a, b, c, chunk = (t.to(f32) if torch.is_tensor(t) else t
+                                 for t in self.captured["ssd"])
+        y, h = ssd(x, dt, a, b, c, chunk=chunk, use_kernel=True)
+        y0, h0 = ssd(x, dt, a, b, c, chunk=chunk, use_kernel=False)
+        err_ssd = max(self.check("ssd f32 y, first call", y, y0, ssd_tol),
+                      self.check("ssd f32 h, first call", h, h0, h_tol))
+        y1, h1 = ssd_chunked_plain(x, dt, a, b, c, chunk)
+        chunked = max(self.check("ssd_chunked f32 y", y1, y0, math.inf),
+                      self.check("ssd_chunked f32 h", h1, h0, math.inf))
+        torch.cuda.synchronize()
+        return {"flash_attention": err_fa, "ssd": err_ssd,
+                "ssd_chunked_vs_sequential_not_held": chunked}
+
+
+def phase_model_path(fa_ops, ssd_ops, scan_ops):
+    """zamba2-2.7b at full width and depth through the serving entry
+    points. Returns (launches per kernel, timing inputs)."""
+    from repro_torch import configs
+    from repro_torch.models import (PREFILL_32K, cast_params, init,
+                                    init_decode_state, n_params)
+    from repro_torch.models.ssm import ssd_chunked
+    from repro_torch.models.transformer import flash_mha
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    cfg = configs.get(MODEL)
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params32 = init(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                    device=dev)                   # f32 master weights
+    n = sum(t.numel() for t in _leaves(params32))
+    assert n == n_params(cfg), (n, n_params(cfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    per_fwd_fa = cfg.n_layers // cfg.shared_attn_every
+    per_fwd_ssd = cfg.n_layers
+
+    rng = np.random.default_rng(SEED)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (N_REQUESTS, PROMPT_LEN))).to(dev)
+    long_toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LONG_BATCH, PREFILL_32K.seq_len))).to(dev)
+
+    def agreement(a, b):
+        return (float((a.float() - b.float()).abs().max()),
+                float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+
+    reset_counts((fa_ops, ssd_ops, scan_ops))
+    # -- the algorithm at full width and depth, in f32 (no TF32): kernel path
+    # vs plain path on the 8 prompts, each kernel call also held in situ
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = cfg.replace(dtype="float32")
+    # f32 tolerances of model_kernel_check
+    with InSituCheck(fa_ops, ssd_ops, 1e-5, 1e-5, 1e-4) as in_situ32:
+        l32k = make_prefill_step(cfg32, use_kernel=True)(params32, prompts)
+    l32p = make_prefill_step(cfg32, use_kernel=False)(params32, prompts)
+    torch.cuda.synchronize()
+    assert fa_ops.launch_count() == per_fwd_fa, fa_ops.launch_count()
+    assert ssd_ops.launch_count() == per_fwd_ssd, ssd_ops.launch_count()
+    assert in_situ32.calls == {"flash_attention": per_fwd_fa,
+                               "ssd": per_fwd_ssd}, in_situ32.calls
+    assert bool(torch.isfinite(l32k).all()) and bool(torch.isfinite(l32p).all())
+    diff32, agree32 = agreement(l32k, l32p)
+    assert agree32 >= MIN_ARGMAX_AGREEMENT, agree32
+    # -- decode in f32: teacher-forced serve steps, each step's logits held
+    # against the f32 prefill's at that position (cache slot, in-place
+    # state, rotary offset)
+    state32 = init_decode_state(cfg32, N_REQUESTS, PROMPT_LEN + GEN_LEN,
+                                dtype=torch.float32, device=dev)
+    serve32 = make_serve_step(cfg32, use_kernel=True)
+    dec32 = []
+    for t in range(DECODE_CHECK_LEN):
+        _nxt, lg, state32 = serve32(params32, state32, prompts[:, t])
+        dec32.append(lg[:, :cfg.vocab])
+    dec32 = torch.stack(dec32, dim=1)
+    pre32 = l32p[:, :DECODE_CHECK_LEN, :cfg.vocab]
+    torch.cuda.synchronize()
+    assert state32.pos == DECODE_CHECK_LEN, state32.pos
+    assert bool(torch.isfinite(dec32).all())
+    dec_diff32, dec_agree32 = agreement(dec32, pre32)
+    dec_scale32 = float(pre32.abs().max())
+    assert dec_agree32 >= MIN_ARGMAX_AGREEMENT, dec_agree32
+    assert dec_diff32 <= DECODE_TOL * dec_scale32, (dec_diff32, dec_scale32)
+    del l32k, l32p, dec32, pre32, state32
+    assert fa_ops.launch_count() == per_fwd_fa       # no kernel in decode
+    assert ssd_ops.launch_count() == per_fwd_ssd
+    t0 = time.perf_counter()
+    params = cast_params(params32, cfg)     # once, as a server would
+    del params32
+    torch.cuda.synchronize()
+    cast_s = time.perf_counter() - t0
+
+    # -- the served dtype, bf16: prefill of the 8 requests -------------------
+    prefill_k = make_prefill_step(cfg, use_kernel=True)
+    prefill_p = make_prefill_step(cfg, use_kernel=False)
+    t0 = time.perf_counter()
+    logits_k = prefill_k(params, prompts)
+    torch.cuda.synchronize()
+    prefill_first_s = time.perf_counter() - t0
+    with InSituCheck(fa_ops, ssd_ops, 2e-2, 2e-2, 5e-2) as in_situ:
+        prefill_k(params, prompts)
+    assert in_situ.calls == {"flash_attention": per_fwd_fa,
+                             "ssd": per_fwd_ssd}, in_situ.calls
+    t0 = time.perf_counter()
+    logits_k = prefill_k(params, prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits_p = prefill_p(params, prompts)
+    torch.cuda.synchronize()
+    prefill_plain_s = time.perf_counter() - t0
+    # the same plain function with another chunk length (equal in exact
+    # arithmetic): how far bf16 rounding alone moves the logits
+    logits_p2 = make_prefill_step(cfg.replace(ssm_chunk=cfg.ssm_chunk // 2),
+                                  use_kernel=False)(params, prompts)
+    torch.cuda.synchronize()
+    assert fa_ops.launch_count() == 4 * per_fwd_fa
+    assert ssd_ops.launch_count() == 4 * per_fwd_ssd
+    assert logits_k.shape == (N_REQUESTS, PROMPT_LEN, cfg.vocab)
+    assert all(bool(torch.isfinite(t).all())
+               for t in (logits_k, logits_p, logits_p2))
+    diff, agree = agreement(logits_k, logits_p)
+    floor_diff, floor_agree = agreement(logits_p2, logits_p)
+    last_prefill = logits_k[:, -1].float()
+    del logits_k, logits_p, logits_p2
+
+    # -- serve: teacher-forced steps over each prompt, then greedy tokens -----
+    state = init_decode_state(cfg, N_REQUESTS, PROMPT_LEN + GEN_LEN,
+                              device=dev)
+    serve = make_serve_step(cfg, use_kernel=True)
+    t0 = time.perf_counter()
+    for t in range(PROMPT_LEN - 1):
+        _nxt, _logits, state = serve(params, state, prompts[:, t])
+    toks = [prompts[:, -1]]
+    first_logits = None
+    for _ in range(GEN_LEN):
+        nxt, logits, state = serve(params, state, toks[-1])
+        if first_logits is None:
+            first_logits = logits.float()
+        toks.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    steps = PROMPT_LEN - 1 + GEN_LEN
+    assert state.pos == steps, state.pos
+    assert bool(torch.isfinite(logits).all())
+    out = torch.stack(toks, dim=1)
+    assert out.shape == (N_REQUESTS, GEN_LEN + 1)
+    assert bool(((out >= 0) & (out < cfg.vocab)).all())
+    # decode's first greedy step sees what the prefill's last position saw
+    decode_vs_prefill = float((first_logits - last_prefill).abs().max())
+    decode_vs_prefill_agree = float(
+        (first_logits.argmax(-1) == last_prefill.argmax(-1)).float().mean())
+    # no kernel on the decode path, as in the reference
+    assert fa_ops.launch_count() == 4 * per_fwd_fa
+    assert ssd_ops.launch_count() == 4 * per_fwd_ssd
+
+    # -- one long prefill: prefill_32k's length, batch cut from 32 to 1 -------
+    # first with every kernel call held in situ against the model's own
+    # plain path (`attention_ref`'s S x S scores would not fit), at the
+    # tolerances of the requests' bf16 check; then timed, unchecked
+    long_plain = (
+        lambda q, k, v, window: flash_mha(q, k, v, window=window),
+        lambda x, dt, a, b, c, chunk: ssd_chunked(x, dt, a, b, c,
+                                                  chunk=chunk))
+    with InSituCheck(fa_ops, ssd_ops, 2e-2, 2e-2, 5e-2, plain=long_plain,
+                     capture=True) as in_situ_long:
+        logits_long = prefill_k(params, long_toks)
+    assert in_situ_long.calls == {"flash_attention": per_fwd_fa,
+                                  "ssd": per_fwd_ssd}, in_situ_long.calls
+    assert bool(torch.isfinite(logits_long).all())
+    del logits_long
+    t0 = time.perf_counter()
+    logits_long = prefill_k(params, long_toks)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    assert logits_long.shape == (LONG_BATCH, PREFILL_32K.seq_len, cfg.vocab)
+    assert bool(torch.isfinite(logits_long).all())
+    del logits_long
+    launches = {"flash_attention": fa_ops.launch_count(),
+                "ssd": ssd_ops.launch_count()}
+    assert launches == {"flash_attention": 6 * per_fwd_fa,
+                        "ssd": 6 * per_fwd_ssd}, launches
+    assert scan_ops.launch_count() == 0
+    # the long prefill's first K2 and K3 calls again, inputs cast to f32,
+    # at the f32 tolerances (after the counts: comparison launches); K3's
+    # plain version here is the sequential recurrence (~5 s at 32768)
+    long_f32 = in_situ_long.hold_captured_f32(1e-5, 1e-5, 1e-4)
+    in_situ_long.captured = None
+    emit({"phase": "model_path", "model": MODEL, "n_params": n,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "dtype": cfg.dtype,
+          "weights": f"random, torch.Generator(cuda).manual_seed({SEED}), "
+                     "f32, cast once to bf16 (>=2-D) for serving",
+          "init_s": init_s, "cast_s": cast_s,
+          "f32_kernel_vs_plain": {"max_abs_logit_diff": diff32,
+                                  "argmax_agreement": agree32,
+                                  "required_agreement":
+                                      MIN_ARGMAX_AGREEMENT},
+          "f32_decode_vs_prefill": {"positions": DECODE_CHECK_LEN,
+                                    "max_abs_logit_diff": dec_diff32,
+                                    "max_abs_prefill_logit": dec_scale32,
+                                    "tol_over_max_logit": DECODE_TOL,
+                                    "argmax_agreement": dec_agree32,
+                                    "required_agreement":
+                                        MIN_ARGMAX_AGREEMENT},
+          "in_situ_f32": {"calls": in_situ32.calls,
+                          "max_err_over_max_plain": in_situ32.worst,
+                          "tol": {"flash_attention": 1e-5, "ssd_y": 1e-5,
+                                  "ssd_h": 1e-4}},
+          "in_situ_bf16": {"calls": in_situ.calls,
+                           "max_err_over_max_plain": in_situ.worst,
+                           "tol": {"flash_attention": 2e-2, "ssd_y": 2e-2,
+                                   "ssd_h": 5e-2}},
+          "requests": {"batch": N_REQUESTS, "prompt_len": PROMPT_LEN,
+                       "gen_len": GEN_LEN,
+                       "prefill_first_call_s": prefill_first_s,
+                       "prefill_s": prefill_s,
+                       "prefill_tokens_per_s":
+                           N_REQUESTS * PROMPT_LEN / prefill_s,
+                       "prefill_plain_s": prefill_plain_s,
+                       "kernel_vs_plain_max_abs_logit_diff": diff,
+                       "kernel_vs_plain_argmax_agreement": agree,
+                       "plain_chunk_halved_vs_plain_max_abs_logit_diff":
+                           floor_diff,
+                       "plain_chunk_halved_vs_plain_argmax_agreement":
+                           floor_agree,
+                       "serve_steps": steps, "decode_s": decode_s,
+                       "decode_tokens_per_s": N_REQUESTS * steps / decode_s,
+                       "decode_step_ms": decode_s / steps * 1e3,
+                       "state_pos": state.pos,
+                       "decode_vs_prefill_last_pos_max_abs_diff":
+                           decode_vs_prefill,
+                       "decode_vs_prefill_last_pos_argmax_agreement":
+                           decode_vs_prefill_agree,
+                       "sample_continuation": out[0, :12].tolist()},
+          "long_prefill": {"batch": LONG_BATCH,
+                           "seq_len": PREFILL_32K.seq_len,
+                           "cut": f"{PREFILL_32K.name} batch "
+                                  f"{PREFILL_32K.global_batch} -> "
+                                  f"{LONG_BATCH}",
+                           "seconds": long_s,
+                           "tokens_per_s": LONG_BATCH * PREFILL_32K.seq_len
+                           / long_s,
+                           "in_situ_bf16": {
+                               "plain": "flash_mha, ssd_chunked",
+                               "calls": in_situ_long.calls,
+                               "max_err_over_max_plain": in_situ_long.worst,
+                               "tol": {"flash_attention": 2e-2,
+                                       "ssd_y": 2e-2, "ssd_h": 5e-2}},
+                           "first_calls_f32": {
+                               "plain": "flash_mha, ssd_ref (sequential)",
+                               "max_err_over_max_plain": long_f32,
+                               "tol": {"flash_attention": 1e-5,
+                                       "ssd_y": 1e-5, "ssd_h": 1e-4}}},
+          "launches_per_prefill": {"flash_attention": per_fwd_fa,
+                                   "ssd": per_fwd_ssd},
+          "kernel_launches": launches, "prefill_forwards_with_kernels": 6,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "results_device": str(logits.device)})
+    del params, state
+    torch.cuda.empty_cache()
+    di = cfg.d_inner
+    return launches, {
+        "fa": {"long": (LONG_BATCH, PREFILL_32K.seq_len, cfg.n_heads,
+                        cfg.n_kv_heads, cfg.head_dim, cfg.window),
+               "request": (N_REQUESTS, PROMPT_LEN, cfg.n_heads,
+                           cfg.n_kv_heads, cfg.head_dim, cfg.window)},
+        "ssd": {"long": (LONG_BATCH, PREFILL_32K.seq_len, cfg.ssm_heads,
+                         di // cfg.ssm_heads, cfg.ssm_state, cfg.ssm_chunk),
+                "request": (N_REQUESTS, PROMPT_LEN, cfg.ssm_heads,
+                            di // cfg.ssm_heads, cfg.ssm_state,
+                            cfg.ssm_chunk)}}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def fa_cost(B, S, H, K, hd, window):
+    """(FLOP, bytes) the causal attention needs: 2 * 2 * hd per (query,
+    visible key) pair (QK^T and PV), q, k, v read once and o written
+    once in bf16."""
+    if window > 0:
+        pairs = sum(min(t + 1, window) for t in range(S))
+    else:
+        pairs = S * (S + 1) // 2
+    return 4 * hd * B * H * pairs, 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)
+
+
+def ssd_cost(B, S, H, P, N, chunk):
+    """(FLOP, bytes) the chunked SSD needs: per chunk of L steps, C B^T
+    over s <= t once per batch row (b and c are shared by the heads),
+    then per head the decay weights and their product with x*dt, the
+    carried-state term and the state update; x, b, c read and y written
+    in bf16, dt, a read and h written in f32."""
+    L = min(chunk, S)
+    nc = S // L
+    tri = L * (L + 1) // 2
+    flops = B * nc * tri * 2 * N + \
+        B * H * nc * (tri * (1 + 2 * P) + 4 * L * N * P)
+    nbytes = 2 * (2 * B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + H) \
+        + 4 * B * H * N * P
+    return flops, nbytes
+
+
+def bound(flops, nbytes):
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def model_kernel_entries(fa_ops, ssd_ops, launches, shapes, worst):
+    """The kernels-line entries of flash_attention and ssd: each kernel at
+    the long-prefill shape (ms, bound, library call) and at the request
+    shape (ms, bound, plain version, library call), by CUDA events.
+    These launches are not the main path's and are not counted in it."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    bf16 = torch.bfloat16
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def sdpa(q, k, v, is_causal):
+        # the fused backends only: the math one would build S x S scores
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=is_causal)
+    entries = []
+
+    B, S, H, K, hd, win = shapes["fa"]["long"]
+    assert win == 0, "the library yardstick below is full causal"
+    q, k, v = fa_inputs(B, S, H, K, hd, bf16, gen)
+    fa_long = cuda_time_ms(lambda: fa_ops.flash_attention(
+        q, k, v, window=win, use_kernel=True), reps=2)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib_long = cuda_time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), reps=2)
+    b_long, by_long = bound(*fa_cost(B, S, H, K, hd, win))
+    del q, k, v, qt, kt, vt
+    B2, S2, H2, K2, hd2, win2 = shapes["fa"]["request"]
+    q, k, v = fa_inputs(B2, S2, H2, K2, hd2, bf16, gen)
+    fa_req = cuda_time_ms(lambda: fa_ops.flash_attention(
+        q, k, v, window=win2, use_kernel=True), reps=10)
+    plain_req = cuda_time_ms(lambda: fa_ops.flash_attention(
+        q, k, v, window=win2, use_kernel=False), reps=10)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib_req = cuda_time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), reps=10)
+    err = check_close("flash_attention at the request shape",
+                      fa_ops.flash_attention(q, k, v, window=win2,
+                                             use_kernel=True),
+                      fa_ops.flash_attention(q, k, v, window=win2,
+                                             use_kernel=False), 2e-2, 2e-2)
+    b_req, _ = bound(*fa_cost(B2, S2, H2, K2, hd2, win2))
+    entries.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
+        "launches": launches["flash_attention"],
+        "max_abs_err": max(worst["flash_attention"], err),
+        "shape_b_s_h_k_hd": [B, S, H, K, hd], "dtype": "bfloat16",
+        "ms": fa_long, "bound_ms": b_long, "bound_by": by_long,
+        "library_ms": lib_long,
+        "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                        "(is_causal=True), timed as a yardstick only",
+        "plain_ms": plain_req,
+        "plain_shape_b_s_h_k_hd": [B2, S2, H2, K2, hd2],
+        "ms_at_plain_shape": fa_req, "bound_ms_at_plain_shape": b_req,
+        "library_ms_at_plain_shape": lib_req})
+    del q, k, v, qt, kt, vt
+
+    B, S, H, P, N, chunk = shapes["ssd"]["long"]
+    x, dt, a, b, c = ssd_inputs(B, S, H, P, N, bf16, gen)
+    ssd_long = cuda_time_ms(lambda: ssd_ops.ssd(
+        x, dt, a, b, c, chunk=chunk, use_kernel=True), reps=5)
+    b_long, by_long = bound(*ssd_cost(B, S, H, P, N, chunk))
+    del x, dt, a, b, c
+    B2, S2, H2, P2, N2, chunk2 = shapes["ssd"]["request"]
+    x, dt, a, b, c = ssd_inputs(B2, S2, H2, P2, N2, bf16, gen)
+    ssd_req = cuda_time_ms(lambda: ssd_ops.ssd(
+        x, dt, a, b, c, chunk=chunk2, use_kernel=True), reps=10)
+    # the plain version is S2 sequential steps of a few launches each
+    plain_req = cuda_time_ms(lambda: ssd_ops.ssd(
+        x, dt, a, b, c, chunk=chunk2, use_kernel=False), reps=1)
+    y1, h1 = ssd_ops.ssd(x, dt, a, b, c, chunk=chunk2, use_kernel=True)
+    y0, h0 = ssd_ops.ssd(x, dt, a, b, c, chunk=chunk2, use_kernel=False)
+    err = max(check_close("ssd y at the request shape", y1, y0, 2e-2, 2e-2),
+              check_close("ssd h at the request shape", h1, h0, 5e-2, 5e-2))
+    b_req, _ = bound(*ssd_cost(B2, S2, H2, P2, N2, chunk2))
+    entries.append({
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:86",
+        "launches": launches["ssd"],
+        "max_abs_err": max(worst["ssd"], err),
+        "shape_b_s_h_p_n_chunk": [B, S, H, P, N, chunk], "dtype": "bfloat16",
+        "ms": ssd_long, "bound_ms": b_long, "bound_by": by_long,
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes the chunked "
+                        "SSD scan",
+        "plain_ms": plain_req,
+        "plain_shape_b_s_h_p_n_chunk": [B2, S2, H2, P2, N2, chunk2],
+        "ms_at_plain_shape": ssd_req, "bound_ms_at_plain_shape": b_req})
+    return entries
+
+
+def kernels_line(ops_mod, launches, timing, max_abs_err, model_entries):
     """Time sweep_scan on the main path's own buckets and print the
     kernels line: the kernel at the largest bucket beside its bounds,
     and kernel and plain version side by side (and compared) at the
-    largest bucket the plain version can walk."""
+    largest bucket the plain version can walk; then the model path's
+    kernels (`model_kernel_entries`)."""
     def run(use_kernel, t):
         return ops_mod.sweep_scan(t["res"], t["dur"], t["lag"], t["deps"],
                                   n_resources=t["n_resources"],
@@ -483,7 +1140,7 @@ def kernels_line(ops_mod, launches, timing, max_abs_err):
         "plain_shape_c_n_r": [mid["res"].shape[0], mid["res"].shape[1],
                               mid["n_resources"]],
         "ms_at_plain_shape": kernel_mid_ms,
-        "library_ms": None}]})
+        "library_ms": None}] + model_entries})
 
 
 def main() -> int:
@@ -492,17 +1149,28 @@ def main() -> int:
               "False); this script does not run on the CPU", file=sys.stderr)
         return 1
     from repro_torch import core, env
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.sweep_scan import kernel as kernel_mod
     from repro_torch.kernels.sweep_scan import ops as ops_mod
     assert "jax" not in sys.modules and "repro" not in sys.modules
 
     t_start = time.perf_counter()
     phase_env(env)
-    phase_build(kernel_mod)
+    phase_build([kernel_mod, fa_kernel, ssd_kernel])
     max_abs_err = phase_kernel_check(ops_mod, kernel_mod)
+    model_worst = phase_model_kernel_check(fa_ops, ssd_ops)
+    # each path is driven with every launch count at 0 just before it
+    reset_counts((ops_mod, fa_ops, ssd_ops))
     launches, timing = phase_main_path(core, ops_mod)
+    assert fa_ops.launch_count() == 0 and ssd_ops.launch_count() == 0
     phase_exact_path(core)
-    kernels_line(ops_mod, launches, timing, max_abs_err)
+    model_launches, model_shapes = phase_model_path(fa_ops, ssd_ops, ops_mod)
+    model_entries = model_kernel_entries(fa_ops, ssd_ops, model_launches,
+                                         model_shapes, model_worst)
+    kernels_line(ops_mod, launches, timing, max_abs_err, model_entries)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

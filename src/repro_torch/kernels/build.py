@@ -87,9 +87,11 @@ def load_library(name: str, sources: Sequence[Path],
     """Build (if needed) and `ctypes`-load a kernel library, once per
     process and path. Callers set ``argtypes``/``restype`` on the
     functions they use: without them `ctypes` passes a pointer as a
-    32-bit int and cuts it."""
+    32-bit int and cuts it. Libraries of different sources build in
+    parallel when loaded from several threads (`build_library` writes
+    each to a file of its own, then renames it into place)."""
+    path = build_library(name, sources, extra_flags, build_dir)
     with _LOCK:
-        path = build_library(name, sources, extra_flags, build_dir)
         lib = _LIBS.get(path)
         if lib is None:
             lib = _LIBS[path] = ctypes.CDLL(str(path))

@@ -1,0 +1,4 @@
+"""Step functions of the port: the serving steps so far."""
+from .step import make_prefill_step, make_serve_step
+
+__all__ = ["make_prefill_step", "make_serve_step"]

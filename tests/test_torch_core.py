@@ -182,6 +182,10 @@ def test_import_leaves_jax_and_repro_out():
     code = ("import sys\n"
             "import repro_torch, repro_torch.core\n"
             "import repro_torch.kernels.sweep_scan.ops\n"
+            "import repro_torch.models, repro_torch.configs\n"
+            "import repro_torch.models.interop, repro_torch.train.step\n"
+            "import repro_torch.kernels.flash_attention.ops\n"
+            "import repro_torch.kernels.ssd.ops\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n"
@@ -215,5 +219,16 @@ def test_all_slice_modules_exist():
                 "core/sweep/search.py", "obs/trace.py", "kernels/build.py",
                 "kernels/sweep_scan/ref.py", "kernels/sweep_scan/kernel.py",
                 "kernels/sweep_scan/ops.py",
-                "kernels/sweep_scan/csrc/sweep_scan.cu"):
+                "kernels/sweep_scan/csrc/sweep_scan.cu",
+                "models/config.py", "models/layers.py",
+                "models/transformer.py", "models/ssm.py", "models/model.py",
+                "models/interop.py", "models/__init__.py",
+                "configs/__init__.py", "configs/zamba2_2p7b.py",
+                "configs/granite_3_2b.py", "configs/mamba2_1p3b.py",
+                "train/step.py", "kernels/flash_attention/ref.py",
+                "kernels/flash_attention/kernel.py",
+                "kernels/flash_attention/ops.py",
+                "kernels/flash_attention/csrc/flash_attention.cu",
+                "kernels/ssd/ref.py", "kernels/ssd/kernel.py",
+                "kernels/ssd/ops.py", "kernels/ssd/csrc/ssd.cu"):
         assert (pkg / rel).is_file(), rel
