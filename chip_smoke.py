@@ -12,8 +12,9 @@ line:
   env          what the host offers (card, capability, power limit,
                torch / CUDA / nvcc versions)
   build        seconds `nvcc` took to build each kernel library
-               (sweep_scan, flash_attention, ssd) from the sources in
-               this checkout, one `nvcc` per source, all started together
+               (sweep_scan, flash_attention, ssd, moe_gmm) from the
+               sources in this checkout, one `nvcc` per source, all
+               started together
   kernel_check sweep_scan kernel vs its plain PyTorch version ON THE
                CARD, `torch.equal` on makespan and end (tolerance: none,
                the arithmetic is max and + in f64 in one order), over
@@ -28,9 +29,10 @@ line:
                scalar loop on the host, and a warm re-sweep
   exact_path   `explore` with exact verification on a small sweep, held
                against the port's `ref_sim`; `Predictor` ref vs exact
-  model_kernel_check  flash_attention and ssd kernels vs their plain
-               PyTorch versions ON THE CARD, f32 and bf16, on the
-               reference's kernel-test shapes and zamba2-2.7b's
+  model_kernel_check  flash_attention, ssd and moe_gmm kernels vs their
+               plain PyTorch versions ON THE CARD, f32 and bf16, on the
+               reference's kernel-test shapes, zamba2-2.7b's, and
+               mixtral-8x22b's and qwen3-moe-235b-a22b's expert shapes
   model_path   the serving path at full width and depth: zamba2-2.7b
                (54 layers, d_model 2560, vocab 32000, random weights from
                a seeded generator), 8 requests of 512-token prompts
@@ -44,6 +46,14 @@ line:
                (batch cut from 32 to 1), its kernel calls held in situ
                against the model's own plain path in bf16, and its first
                K2 and K3 calls again in f32
+  moe_path     the MoE serving path: mixtral-8x22b at full width (d_model
+               6144, 8 experts of d_ff 16384, top-2, window 4096) with
+               its depth cut from 56 to 8 layers, random weights drawn
+               in bf16; a 2-layer f32 copy held kernel vs plain path
+               (argmax agreement) and serve steps vs prefill; then the
+               same traffic as model_path, every K2 and K4 call of one
+               forward per shape held in situ, one K4 launch per layer
+               in every prefill forward and every serve step
   {"kernels": [...]}  one entry per kernel: launches counted during its
                path, its time at the path's largest shape beside its
                bound, the plain version's time beside the kernel's at a
@@ -54,6 +64,7 @@ line:
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -128,6 +139,26 @@ FA_CHECK = [(2, 256, 4, 2, 64, 0), (1, 128, 4, 4, 32, 0),
 SSD_CHECK = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 16, 8, 64),
              (2, 96, 3, 8, 4, 32), (1, 64, 8, 64, 32, 64),
              (2, 512, 80, 64, 64, 256)]
+# (G, E, C, d, f, drawn at the model's scale): tests/test_kernels.py's
+# moe_gmm rows; mixtral-8x22b's capacity at 8 x 512 prompt tokens and in
+# decode (batch 8); qwen3-moe-235b-a22b's at 8 x 512 (C = 320, no
+# multiple of 128: the reference's kernel refuses it) with 128 experts
+GMM_CHECK = [(1, 4, 64, 32, 64, False), (2, 2, 128, 64, 128, False),
+             (1, 8, 32, 16, 48, False), (4, 2, 64, 128, 64, False),
+             (1, 8, 1280, 6144, 16384, True), (1, 8, 8, 6144, 16384, True),
+             (1, 128, 320, 4096, 1536, True)]
+
+# the MoE serving path: mixtral-8x22b at full width (d_model 6144, 48
+# heads of 128, 8 kv heads, 8 experts of d_ff 16384, top-2, window 4096,
+# vocab 32768) with its depth cut from 56 to 8 layers: 20.4e9 parameters,
+# 40.9 GB in bf16, where 56 layers (281 GB) fit no card. The f32 argmax
+# agreement is held on a 2-layer copy at full width (21.6 GB in f32),
+# since 8 layers in f32 do not fit beside the bf16 model. Same traffic
+# as zamba2's: 8 requests of 512-token prompts, then one 32768-token
+# prefill with the batch cut from 32 to 1.
+MOE_MODEL = "mixtral-8x22b"
+MOE_LAYERS = 8
+MOE_F32_LAYERS = 2
 
 
 def emit(obj) -> None:
@@ -513,6 +544,20 @@ def ssd_inputs(B, S, H, P, N, dtype, gen):
     return x, dt, a, b, c
 
 
+def gmm_inputs(GE, E, C, d, f, dtype, gen, model_scale):
+    """x [GE, C, d], wg, wu [E, d, f], wd [E, f, d]: as the reference's
+    kernel test draws them (x * 0.3, weights * 0.1), or as the model
+    meets them (unit tokens, weights at 1/sqrt(input width))."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    if model_scale:
+        return (randn(GE, C, d).to(dtype), (randn(E, d, f) / d ** 0.5).to(dtype),
+                (randn(E, d, f) / d ** 0.5).to(dtype),
+                (randn(E, f, d) / f ** 0.5).to(dtype))
+    return ((randn(GE, C, d) * 0.3).to(dtype), (randn(E, d, f) * 0.1).to(dtype),
+            (randn(E, d, f) * 0.1).to(dtype), (randn(E, f, d) * 0.1).to(dtype))
+
+
 def check_close(tag, got, want, rtol, atol):
     """Raise unless |got - want| <= atol + rtol |want| everywhere;
     returns the largest absolute difference."""
@@ -525,16 +570,21 @@ def check_close(tag, got, want, rtol, atol):
     return err
 
 
-def phase_model_kernel_check(fa_ops, ssd_ops):
-    """flash_attention and ssd kernels vs their plain versions on the
-    card. Tolerances: the reference's `_tol` (f32 1e-5, bf16 2e-2: both
-    sides compute in f32 in another order, bf16 outputs are rounded
-    once), and the SSD state at 1e-4 / 5e-2 as the reference holds its
-    own kernel. Returns the largest absolute difference per kernel."""
+def phase_model_kernel_check(fa_ops, ssd_ops, gmm_ops):
+    """flash_attention, ssd and moe_gmm kernels vs their plain versions
+    on the card. Tolerances: the reference's `_tol` (f32 1e-5, bf16 2e-2:
+    both sides compute in f32 in another order, bf16 outputs are rounded
+    once; moe_gmm's bf16 path also rounds act once), and the SSD state at
+    1e-4 / 5e-2 as the reference holds its own kernel. The f32 moe_gmm
+    kernel is held against its plain version evaluated in f64: at full
+    width cuBLAS's f32 evaluation itself strays ~2e-5 from the exact
+    sums (reported beside). Returns the largest absolute difference per
+    kernel."""
+    from repro_torch.kernels.moe_gmm.ref import expert_ffn_ref
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst = {"flash_attention": 0.0, "ssd": 0.0}
+    worst = {"flash_attention": 0.0, "ssd": 0.0, "moe_gmm": 0.0}
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
@@ -564,9 +614,38 @@ def phase_model_kernel_check(fa_ops, ssd_ops):
                           "shape": [B, S, H, P, N, chunk], "tol_y": rt,
                           "tol_h": ht, "max_abs_err_y": err,
                           "max_abs_err_h": herr})
+        for G, E, C, d, f, model_scale in GMM_CHECK:
+            x, wg, wu, wd = gmm_inputs(G * E, E, C, d, f, dtype, gen,
+                                       model_scale)
+            plain = gmm_ops.expert_ffn(x, wg, wu, wd, use_kernel=False)
+            got = gmm_ops.expert_ffn(x, wg, wu, wd, use_kernel=True)
+            # f32: the plain version evaluated in f64 (its own f32
+            # evaluation strays ~2e-5 at full width); bf16: as it is
+            want = plain if bf16 else expert_ffn_ref(
+                *(t.double() for t in (x, wg, wu, wd)))
+            torch.cuda.synchronize()
+            tag = f"moe_gmm {dtype} G,E,C,d,f={G},{E},{C},{d},{f}"
+            err = check_close(tag, got, want, rt, rt)
+            worst["moe_gmm"] = max(worst["moe_gmm"], err)
+            cases.append({"kernel": "moe_gmm", "dtype": str(dtype),
+                          "shape": [G, E, C, d, f], "tol": rt,
+                          "oracle": "expert_ffn_ref in " +
+                                    ("f32" if bf16 else "f64"),
+                          "max_abs_err": err,
+                          "plain_f32_vs_oracle_max_abs_err_not_held":
+                              None if bf16 else float(
+                                  (plain.double() - want).abs().max()),
+                          "max_abs_plain": float(want.float().abs().max())})
+            del x, wg, wu, wd, want, got, plain
     emit({"phase": "model_kernel_check", "cases": len(cases),
           "max_abs_err": worst, "detail": cases})
     return worst
+
+
+def agreement(a, b):
+    """(max |a - b|, share of positions whose argmax agrees)."""
+    return (float((a.float() - b.float()).abs().max()),
+            float((a.argmax(-1) == b.argmax(-1)).float().mean()))
 
 
 def reset_counts(ops_mods):
@@ -575,32 +654,35 @@ def reset_counts(ops_mods):
 
 
 class InSituCheck:
-    """For one model forward, every flash_attention / ssd kernel launch
-    the model makes is also run through the plain version on the same
-    inputs and compared: the kernels held at the real activations of the
-    full-size model, where a comparison of final logits cannot reach
+    """For one model forward, every flash_attention / ssd / moe_gmm kernel
+    launch the model makes is also run through the plain version on the
+    same inputs and compared: the kernels held at the real activations of
+    the full-size model, where a comparison of final logits cannot reach
     through 54 layers in bf16. The bound is relative to the tensor's
     scale, max |kernel - plain| <= tol * max |plain|: an element that is a
     near-cancelling sum of large terms carries an absolute rounding error
     of eps times those terms in either version. The plain runs launch
     nothing and count nothing. Restores the wrappers on exit.
 
-    ``plain`` replaces the wrappers' plain versions by another pair,
-    ``(fa(q, k, v, window), ssd(x, dt, a, b, c, chunk))``: at lengths
-    where `attention_ref`'s S x S scores or `ssd_ref`'s S sequential
-    steps do not fit, the model's own plain path (`flash_mha`,
-    `ssd_chunked`). With ``capture`` the inputs of each kernel's first
-    call are kept in `captured`, to be held again in f32
-    (`hold_captured_f32`)."""
+    ``plain`` replaces some of the wrappers' plain versions by others,
+    keyed by kernel: ``flash_attention(q, k, v, window)``,
+    ``ssd(x, dt, a, b, c, chunk)``, ``moe_gmm(x, wg, wu, wd)``: at lengths
+    where `attention_ref`'s S x S scores, `ssd_ref`'s S sequential steps
+    or `expert_ffn_ref`'s f32 intermediates do not fit, the model's own
+    plain path (`flash_mha`, `ssd_chunked`, `expert_ffn_einsum`). With
+    ``capture`` the inputs of each kernel's first call are kept in
+    `captured`, to be held again in f32 (`hold_captured_f32`)."""
 
     def __init__(self, fa_ops, ssd_ops, fa_tol, ssd_tol, h_tol, plain=None,
-                 capture=False):
-        self.fa_ops, self.ssd_ops = fa_ops, ssd_ops
-        self.tols = {"fa": fa_tol, "ssd": ssd_tol, "h": h_tol}
-        self.plain = plain
+                 capture=False, gmm_ops=None, gmm_tol=None):
+        self.fa_ops, self.ssd_ops, self.gmm_ops = fa_ops, ssd_ops, gmm_ops
+        self.tols = {"fa": fa_tol, "ssd": ssd_tol, "h": h_tol,
+                     "gmm": gmm_tol}
+        self.plain = plain or {}
         self.captured = {} if capture else None
-        self.calls = {"flash_attention": 0, "ssd": 0}
-        self.worst = {"flash_attention": 0.0, "ssd": 0.0}
+        names = ["flash_attention", "ssd"] + (["moe_gmm"] if gmm_ops else [])
+        self.calls = {n: 0 for n in names}
+        self.worst = {n: 0.0 for n in names}
 
     @staticmethod
     def check(tag, got, want, tol):
@@ -613,13 +695,20 @@ class InSituCheck:
         return err / scale if scale else 0.0
 
     def __enter__(self):
-        fa, ssd = self.orig = (self.fa_ops.flash_attention, self.ssd_ops.ssd)
+        fa, ssd = self.fa_ops.flash_attention, self.ssd_ops.ssd
+        gmm = self.gmm_ops.expert_ffn if self.gmm_ops else None
+        self.orig = (fa, ssd, gmm)
         t = self.tols
-        fa_plain, ssd_plain = self._plain = self.plain or (
-            lambda q, k, v, window: fa(q, k, v, window=window,
-                                       use_kernel=False),
-            lambda x, dt, a, b, c, chunk: ssd(x, dt, a, b, c, chunk=chunk,
-                                              use_kernel=False))
+        self._plain = {
+            "flash_attention": lambda q, k, v, window: fa(
+                q, k, v, window=window, use_kernel=False),
+            "ssd": lambda x, dt, a, b, c, chunk: ssd(
+                x, dt, a, b, c, chunk=chunk, use_kernel=False),
+            "moe_gmm": lambda x, wg, wu, wd: gmm(x, wg, wu, wd,
+                                                 use_kernel=False),
+            **self.plain}
+        fa_plain, ssd_plain, gmm_plain = (
+            self._plain[n] for n in ("flash_attention", "ssd", "moe_gmm"))
 
         def keep(name, args):
             if self.captured is not None and name not in self.captured:
@@ -648,8 +737,18 @@ class InSituCheck:
             self._note("ssd", err)
             return y, h
 
+        def gmm_checked(x, wg, wu, wd, *, use_kernel):
+            out = gmm(x, wg, wu, wd, use_kernel=use_kernel)
+            want = gmm_plain(x, wg, wu, wd)
+            err = self.check(f"moe_gmm in situ, call {self.calls['moe_gmm']}",
+                             out, want, t["gmm"])
+            self._note("moe_gmm", err)
+            return out
+
         self.fa_ops.flash_attention = fa_checked
         self.ssd_ops.ssd = ssd_checked
+        if self.gmm_ops:
+            self.gmm_ops.expert_ffn = gmm_checked
         return self
 
     def _note(self, name, err):
@@ -657,7 +756,9 @@ class InSituCheck:
         self.worst[name] = max(self.worst[name], err)
 
     def __exit__(self, *exc):
-        self.fa_ops.flash_attention, self.ssd_ops.ssd = self.orig
+        self.fa_ops.flash_attention, self.ssd_ops.ssd, gmm = self.orig
+        if self.gmm_ops:
+            self.gmm_ops.expert_ffn = gmm
         return False
 
     def hold_captured_f32(self, fa_tol, ssd_tol, h_tol):
@@ -670,8 +771,9 @@ class InSituCheck:
         is reported beside. Returns the largest error over max |plain|
         per kernel. These launches are a comparison's: read the path's
         launch counts before."""
-        fa, ssd = self.orig
-        fa_plain, ssd_chunked_plain = self._plain
+        fa, ssd, _ = self.orig
+        fa_plain, ssd_chunked_plain = (self._plain["flash_attention"],
+                                       self._plain["ssd"])
         f32 = torch.float32
         q, k, v, window = (x.to(f32) if torch.is_tensor(x) else x
                            for x in self.captured["flash_attention"])
@@ -692,15 +794,82 @@ class InSituCheck:
                 "ssd_chunked_vs_sequential_not_held": chunked}
 
 
-def phase_model_path(fa_ops, ssd_ops, scan_ops):
+def hold_decode_against_prefill(cfg32, params32, prompts, prefill32):
+    """DECODE_CHECK_LEN teacher-forced f32 serve steps, each step's logits
+    held against the f32 prefill's at that position (cache slot, in-place
+    state, rotary offset): argmax agreement at MIN_ARGMAX_AGREEMENT and
+    max |decode - prefill| <= DECODE_TOL x max |prefill logit|. Returns
+    (max diff, max |prefill logit|, agreement)."""
+    from repro_torch.models import init_decode_state
+    from repro_torch.train.step import make_serve_step
+    state = init_decode_state(cfg32, N_REQUESTS, PROMPT_LEN + GEN_LEN,
+                              dtype=torch.float32, device=prompts.device)
+    serve = make_serve_step(cfg32, use_kernel=True)
+    dec = []
+    for t in range(DECODE_CHECK_LEN):
+        _nxt, lg, state = serve(params32, state, prompts[:, t])
+        dec.append(lg[:, :cfg32.vocab])
+    dec = torch.stack(dec, dim=1)
+    pre = prefill32[:, :DECODE_CHECK_LEN, :cfg32.vocab]
+    torch.cuda.synchronize()
+    assert state.pos == DECODE_CHECK_LEN, state.pos
+    assert bool(torch.isfinite(dec).all())
+    diff, agree = agreement(dec, pre)
+    scale = float(pre.abs().max())
+    assert agree >= MIN_ARGMAX_AGREEMENT, agree
+    assert diff <= DECODE_TOL * scale, (diff, scale)
+    return diff, scale, agree
+
+
+def serve_requests(cfg, params, prompts, last_prefill):
+    """Serve the prompts as `examples/serve_batch.py` serves: PROMPT_LEN - 1
+    teacher-forced serve steps, then GEN_LEN greedy tokens, in the served
+    dtype; the first greedy step's logits are compared with the
+    prefill's last position (reported). Returns the readings."""
+    from repro_torch.models import init_decode_state
+    from repro_torch.train.step import make_serve_step
+    state = init_decode_state(cfg, N_REQUESTS, PROMPT_LEN + GEN_LEN,
+                              device=prompts.device)
+    serve = make_serve_step(cfg, use_kernel=True)
+    t0 = time.perf_counter()
+    for t in range(PROMPT_LEN - 1):
+        _nxt, _logits, state = serve(params, state, prompts[:, t])
+    toks = [prompts[:, -1]]
+    first_logits = None
+    for _ in range(GEN_LEN):
+        nxt, logits, state = serve(params, state, toks[-1])
+        if first_logits is None:
+            first_logits = logits.float()
+        toks.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    steps = PROMPT_LEN - 1 + GEN_LEN
+    assert state.pos == steps, state.pos
+    assert bool(torch.isfinite(logits).all())
+    out = torch.stack(toks, dim=1)
+    assert out.shape == (N_REQUESTS, GEN_LEN + 1)
+    assert bool(((out >= 0) & (out < cfg.vocab)).all())
+    return {"serve_steps": steps, "decode_s": decode_s,
+            "decode_tokens_per_s": N_REQUESTS * steps / decode_s,
+            "decode_step_ms": decode_s / steps * 1e3,
+            "state_pos": state.pos,
+            "decode_vs_prefill_last_pos_max_abs_diff":
+                float((first_logits - last_prefill).abs().max()),
+            "decode_vs_prefill_last_pos_argmax_agreement": float(
+                (first_logits.argmax(-1) == last_prefill.argmax(-1))
+                .float().mean()),
+            "sample_continuation": out[0, :12].tolist(),
+            "results_device": str(out.device)}
+
+
+def phase_model_path(fa_ops, ssd_ops, gmm_ops, scan_ops):
     """zamba2-2.7b at full width and depth through the serving entry
     points. Returns (launches per kernel, timing inputs)."""
     from repro_torch import configs
-    from repro_torch.models import (PREFILL_32K, cast_params, init,
-                                    init_decode_state, n_params)
+    from repro_torch.models import PREFILL_32K, cast_params, init, n_params
     from repro_torch.models.ssm import ssd_chunked
     from repro_torch.models.transformer import flash_mha
-    from repro_torch.train.step import make_prefill_step, make_serve_step
+    from repro_torch.train.step import make_prefill_step
 
     cfg = configs.get(MODEL)
     dev = torch.device("cuda")
@@ -721,11 +890,7 @@ def phase_model_path(fa_ops, ssd_ops, scan_ops):
     long_toks = torch.from_numpy(rng.integers(
         0, cfg.vocab, (LONG_BATCH, PREFILL_32K.seq_len))).to(dev)
 
-    def agreement(a, b):
-        return (float((a.float() - b.float()).abs().max()),
-                float((a.argmax(-1) == b.argmax(-1)).float().mean()))
-
-    reset_counts((fa_ops, ssd_ops, scan_ops))
+    reset_counts((fa_ops, ssd_ops, gmm_ops, scan_ops))
     # -- the algorithm at full width and depth, in f32 (no TF32): kernel path
     # vs plain path on the 8 prompts, each kernel call also held in situ
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -743,26 +908,10 @@ def phase_model_path(fa_ops, ssd_ops, scan_ops):
     assert bool(torch.isfinite(l32k).all()) and bool(torch.isfinite(l32p).all())
     diff32, agree32 = agreement(l32k, l32p)
     assert agree32 >= MIN_ARGMAX_AGREEMENT, agree32
-    # -- decode in f32: teacher-forced serve steps, each step's logits held
-    # against the f32 prefill's at that position (cache slot, in-place
-    # state, rotary offset)
-    state32 = init_decode_state(cfg32, N_REQUESTS, PROMPT_LEN + GEN_LEN,
-                                dtype=torch.float32, device=dev)
-    serve32 = make_serve_step(cfg32, use_kernel=True)
-    dec32 = []
-    for t in range(DECODE_CHECK_LEN):
-        _nxt, lg, state32 = serve32(params32, state32, prompts[:, t])
-        dec32.append(lg[:, :cfg.vocab])
-    dec32 = torch.stack(dec32, dim=1)
-    pre32 = l32p[:, :DECODE_CHECK_LEN, :cfg.vocab]
-    torch.cuda.synchronize()
-    assert state32.pos == DECODE_CHECK_LEN, state32.pos
-    assert bool(torch.isfinite(dec32).all())
-    dec_diff32, dec_agree32 = agreement(dec32, pre32)
-    dec_scale32 = float(pre32.abs().max())
-    assert dec_agree32 >= MIN_ARGMAX_AGREEMENT, dec_agree32
-    assert dec_diff32 <= DECODE_TOL * dec_scale32, (dec_diff32, dec_scale32)
-    del l32k, l32p, dec32, pre32, state32
+    # -- decode in f32: serve steps held against the f32 prefill
+    dec_diff32, dec_scale32, dec_agree32 = hold_decode_against_prefill(
+        cfg32, params32, prompts, l32p)
+    del l32k, l32p
     assert fa_ops.launch_count() == per_fwd_fa       # no kernel in decode
     assert ssd_ops.launch_count() == per_fwd_ssd
     t0 = time.perf_counter()
@@ -806,31 +955,7 @@ def phase_model_path(fa_ops, ssd_ops, scan_ops):
     del logits_k, logits_p, logits_p2
 
     # -- serve: teacher-forced steps over each prompt, then greedy tokens -----
-    state = init_decode_state(cfg, N_REQUESTS, PROMPT_LEN + GEN_LEN,
-                              device=dev)
-    serve = make_serve_step(cfg, use_kernel=True)
-    t0 = time.perf_counter()
-    for t in range(PROMPT_LEN - 1):
-        _nxt, _logits, state = serve(params, state, prompts[:, t])
-    toks = [prompts[:, -1]]
-    first_logits = None
-    for _ in range(GEN_LEN):
-        nxt, logits, state = serve(params, state, toks[-1])
-        if first_logits is None:
-            first_logits = logits.float()
-        toks.append(nxt)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    steps = PROMPT_LEN - 1 + GEN_LEN
-    assert state.pos == steps, state.pos
-    assert bool(torch.isfinite(logits).all())
-    out = torch.stack(toks, dim=1)
-    assert out.shape == (N_REQUESTS, GEN_LEN + 1)
-    assert bool(((out >= 0) & (out < cfg.vocab)).all())
-    # decode's first greedy step sees what the prefill's last position saw
-    decode_vs_prefill = float((first_logits - last_prefill).abs().max())
-    decode_vs_prefill_agree = float(
-        (first_logits.argmax(-1) == last_prefill.argmax(-1)).float().mean())
+    served = serve_requests(cfg, params, prompts, last_prefill)
     # no kernel on the decode path, as in the reference
     assert fa_ops.launch_count() == 4 * per_fwd_fa
     assert ssd_ops.launch_count() == 4 * per_fwd_ssd
@@ -839,10 +964,11 @@ def phase_model_path(fa_ops, ssd_ops, scan_ops):
     # first with every kernel call held in situ against the model's own
     # plain path (`attention_ref`'s S x S scores would not fit), at the
     # tolerances of the requests' bf16 check; then timed, unchecked
-    long_plain = (
-        lambda q, k, v, window: flash_mha(q, k, v, window=window),
-        lambda x, dt, a, b, c, chunk: ssd_chunked(x, dt, a, b, c,
-                                                  chunk=chunk))
+    long_plain = {
+        "flash_attention": lambda q, k, v, window: flash_mha(
+            q, k, v, window=window),
+        "ssd": lambda x, dt, a, b, c, chunk: ssd_chunked(x, dt, a, b, c,
+                                                         chunk=chunk)}
     with InSituCheck(fa_ops, ssd_ops, 2e-2, 2e-2, 5e-2, plain=long_plain,
                      capture=True) as in_situ_long:
         logits_long = prefill_k(params, long_toks)
@@ -861,7 +987,7 @@ def phase_model_path(fa_ops, ssd_ops, scan_ops):
                 "ssd": ssd_ops.launch_count()}
     assert launches == {"flash_attention": 6 * per_fwd_fa,
                         "ssd": 6 * per_fwd_ssd}, launches
-    assert scan_ops.launch_count() == 0
+    assert scan_ops.launch_count() == 0 and gmm_ops.launch_count() == 0
     # the long prefill's first K2 and K3 calls again, inputs cast to f32,
     # at the f32 tolerances (after the counts: comparison launches); K3's
     # plain version here is the sequential recurrence (~5 s at 32768)
@@ -904,16 +1030,7 @@ def phase_model_path(fa_ops, ssd_ops, scan_ops):
                        "plain_chunk_halved_vs_plain_max_abs_logit_diff":
                            floor_diff,
                        "plain_chunk_halved_vs_plain_argmax_agreement":
-                           floor_agree,
-                       "serve_steps": steps, "decode_s": decode_s,
-                       "decode_tokens_per_s": N_REQUESTS * steps / decode_s,
-                       "decode_step_ms": decode_s / steps * 1e3,
-                       "state_pos": state.pos,
-                       "decode_vs_prefill_last_pos_max_abs_diff":
-                           decode_vs_prefill,
-                       "decode_vs_prefill_last_pos_argmax_agreement":
-                           decode_vs_prefill_agree,
-                       "sample_continuation": out[0, :12].tolist()},
+                           floor_agree, **served},
           "long_prefill": {"batch": LONG_BATCH,
                            "seq_len": PREFILL_32K.seq_len,
                            "cut": f"{PREFILL_32K.name} batch "
@@ -936,9 +1053,8 @@ def phase_model_path(fa_ops, ssd_ops, scan_ops):
           "launches_per_prefill": {"flash_attention": per_fwd_fa,
                                    "ssd": per_fwd_ssd},
           "kernel_launches": launches, "prefill_forwards_with_kernels": 6,
-          "peak_device_bytes": torch.cuda.max_memory_allocated(),
-          "results_device": str(logits.device)})
-    del params, state
+          "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    del params
     torch.cuda.empty_cache()
     di = cfg.d_inner
     return launches, {
@@ -951,6 +1067,246 @@ def phase_model_path(fa_ops, ssd_ops, scan_ops):
                 "request": (N_REQUESTS, PROMPT_LEN, cfg.ssm_heads,
                             di // cfg.ssm_heads, cfg.ssm_state,
                             cfg.ssm_chunk)}}
+
+
+@contextlib.contextmanager
+def plain_kernel_versions(fa_ops, gmm_ops):
+    """Within the `with`, the model's K2 and K4 calls take the wrappers'
+    plain versions (`attention_ref`, `expert_ffn_ref`, all in f32): the
+    function of the model's plain path, rounded at other places. They
+    launch nothing and count nothing."""
+    fa, gmm = fa_ops.flash_attention, gmm_ops.expert_ffn
+    fa_ops.flash_attention = lambda q, k, v, *, causal=True, window=0, \
+        use_kernel: fa(q, k, v, causal=causal, window=window,
+                       use_kernel=False)
+    gmm_ops.expert_ffn = lambda x, wg, wu, wd, *, use_kernel: gmm(
+        x, wg, wu, wd, use_kernel=False)
+    try:
+        yield
+    finally:
+        fa_ops.flash_attention, gmm_ops.expert_ffn = fa, gmm
+
+
+def phase_moe_path(fa_ops, ssd_ops, gmm_ops, scan_ops):
+    """mixtral-8x22b at full width, depth cut to MOE_LAYERS, through the
+    serving entry points: a 2-layer f32 copy (kernel vs plain path, f32
+    serve steps vs the f32 prefill), then the bf16 model serving 8
+    requests and one 32768-token prefill, every K2 and K4 call of one
+    forward per shape held in situ. Returns (launches per kernel, the
+    shapes the kernels met)."""
+    from repro_torch import configs
+    from repro_torch.models import PREFILL_32K, init, n_params, padded_vocab
+    from repro_torch.kernels.moe_gmm.ref import expert_ffn_ref
+    from repro_torch.models.moe import capacity, expert_ffn_einsum
+    from repro_torch.models.transformer import flash_mha
+    from repro_torch.train.step import make_prefill_step
+
+    full = configs.get(MOE_MODEL)
+    cfg = full.replace(n_layers=MOE_LAYERS)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(SEED)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (N_REQUESTS, PROMPT_LEN))).to(dev)
+    long_toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LONG_BATCH, PREFILL_32K.seq_len))).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts((fa_ops, ssd_ops, gmm_ops, scan_ops))
+    L, L32 = cfg.n_layers, MOE_F32_LAYERS
+
+    def counts():
+        return {"flash_attention": fa_ops.launch_count(),
+                "moe_gmm": gmm_ops.launch_count()}
+
+    # -- f32 (no TF32), 2 layers at full width: kernel path vs plain path on
+    # the 8 prompts, every kernel call held in situ; then f32 serve steps
+    # held against the f32 prefill
+    cfg32 = cfg.replace(n_layers=L32, dtype="float32")
+    t0 = time.perf_counter()
+    p32 = init(torch.Generator(device=dev).manual_seed(SEED), cfg32,
+               dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    init32_s = time.perf_counter() - t0
+    # K4 is held against its plain version evaluated in f64 (the f32
+    # evaluation by cuBLAS strays ~6e-6 of the scale at this width)
+    f64_plain = {"moe_gmm": lambda x, wg, wu, wd: expert_ffn_ref(
+        *(t.double() for t in (x, wg, wu, wd)))}
+    with InSituCheck(fa_ops, ssd_ops, 1e-5, 1e-5, 1e-4, plain=f64_plain,
+                     gmm_ops=gmm_ops, gmm_tol=1e-5) as in_situ32:
+        l32k = make_prefill_step(cfg32, use_kernel=True)(p32, prompts)
+    l32p = make_prefill_step(cfg32, use_kernel=False)(p32, prompts)
+    torch.cuda.synchronize()
+    assert in_situ32.calls == {"flash_attention": L32, "ssd": 0,
+                               "moe_gmm": L32}, in_situ32.calls
+    assert counts() == {"flash_attention": L32, "moe_gmm": L32}, counts()
+    assert bool(torch.isfinite(l32k).all()) and bool(torch.isfinite(l32p).all())
+    diff32, agree32 = agreement(l32k, l32p)
+    assert agree32 >= MIN_ARGMAX_AGREEMENT, agree32
+    dec_diff32, dec_scale32, dec_agree32 = hold_decode_against_prefill(
+        cfg32, p32, prompts, l32p)
+    # K4 in every decode step, K2 in none
+    f32_counts = {"flash_attention": L32,
+                  "moe_gmm": L32 + DECODE_CHECK_LEN * L32}
+    assert counts() == f32_counts, counts()
+    del p32, l32k, l32p
+    torch.cuda.empty_cache()
+
+    # -- the served model: 8 layers in bf16, drawn slice by slice ------------
+    t0 = time.perf_counter()
+    params = init(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                  dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in _leaves(params))
+    assert n == n_params(cfg), (n, n_params(cfg))
+    prefill_k = make_prefill_step(cfg, use_kernel=True)
+    prefill_p = make_prefill_step(cfg, use_kernel=False)
+    t0 = time.perf_counter()
+    logits_k = prefill_k(params, prompts)
+    torch.cuda.synchronize()
+    prefill_first_s = time.perf_counter() - t0
+    with InSituCheck(fa_ops, ssd_ops, 2e-2, 2e-2, 5e-2, gmm_ops=gmm_ops,
+                     gmm_tol=2e-2) as in_situ:
+        prefill_k(params, prompts)
+    assert in_situ.calls == {"flash_attention": L, "ssd": 0, "moe_gmm": L}, \
+        in_situ.calls
+    t0 = time.perf_counter()
+    logits_k = prefill_k(params, prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits_p = prefill_p(params, prompts)
+    torch.cuda.synchronize()
+    prefill_plain_s = time.perf_counter() - t0
+    # the kernels' plain versions in place of the kernels: the plain
+    # path's function rounded at other places (f32 products)
+    with plain_kernel_versions(fa_ops, gmm_ops):
+        logits_w = prefill_k(params, prompts)
+    torch.cuda.synchronize()
+    expect = {k: v + 3 * L for k, v in f32_counts.items()}
+    assert counts() == expect, (counts(), expect)
+    assert logits_k.shape == (N_REQUESTS, PROMPT_LEN, padded_vocab(cfg.vocab))
+    assert all(bool(torch.isfinite(t).all())
+               for t in (logits_k, logits_p, logits_w))
+    diff, agree = agreement(logits_k, logits_p)
+    floor_diff, floor_agree = agreement(logits_w, logits_p)
+    last_prefill = logits_k[:, -1].float()
+    del logits_k, logits_p, logits_w
+
+    # -- serve: teacher-forced steps over each prompt, then greedy tokens -----
+    served = serve_requests(cfg, params, prompts, last_prefill)
+    steps = served["serve_steps"]
+    expect["moe_gmm"] += steps * L            # K4 in every decode step
+    assert counts() == expect, (counts(), expect)
+
+    # -- one long prefill: prefill_32k's length, batch cut from 32 to 1 -------
+    # held in situ against the model's own plain path (flash_mha, the three
+    # bf16 einsums: `attention_ref`'s S x S scores and `expert_ffn_ref`'s
+    # f32 intermediates, 5.4 GB each, are not what the model runs there)
+    long_plain = {
+        "flash_attention": lambda q, k, v, window: flash_mha(
+            q, k, v, window=window),
+        "moe_gmm": lambda x, wg, wu, wd: expert_ffn_einsum(
+            x[None], wg, wu, wd)[0]}
+    with InSituCheck(fa_ops, ssd_ops, 2e-2, 2e-2, 5e-2, plain=long_plain,
+                     gmm_ops=gmm_ops, gmm_tol=2e-2) as in_situ_long:
+        logits_long = prefill_k(params, long_toks)
+    assert in_situ_long.calls == {"flash_attention": L, "ssd": 0,
+                                  "moe_gmm": L}, in_situ_long.calls
+    assert bool(torch.isfinite(logits_long).all())
+    del logits_long
+    t0 = time.perf_counter()
+    logits_long = prefill_k(params, long_toks)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    assert logits_long.shape == (LONG_BATCH, PREFILL_32K.seq_len,
+                                 padded_vocab(cfg.vocab))
+    assert bool(torch.isfinite(logits_long).all())
+    del logits_long
+    expect = {k: v + 2 * L for k, v in expect.items()}
+    launches = counts()
+    assert launches == expect, (launches, expect)
+    assert ssd_ops.launch_count() == 0 and scan_ops.launch_count() == 0
+    peak = torch.cuda.max_memory_allocated()
+    E = cfg.n_experts
+    emit({"phase": "moe_path", "model": MOE_MODEL, "n_params": n,
+          "n_layers": L, "n_layers_published": full.n_layers,
+          "cut": f"depth {full.n_layers} -> {L} layers (full width)",
+          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+          "n_experts": E, "top_k": cfg.top_k, "d_ff": cfg.d_ff,
+          "window": cfg.window, "vocab": cfg.vocab, "dtype": cfg.dtype,
+          "weights": f"random, torch.Generator(cuda).manual_seed({SEED}), "
+                     "drawn in bf16 slice by slice",
+          "init_s": init_s,
+          "capacity": {"request": capacity(cfg, N_REQUESTS * PROMPT_LEN),
+                       "decode": capacity(cfg, N_REQUESTS),
+                       "long": capacity(cfg, LONG_BATCH *
+                                        PREFILL_32K.seq_len)},
+          "f32_copy": {"n_layers": L32, "init_s": init32_s,
+                       "kernel_vs_plain_max_abs_logit_diff": diff32,
+                       "kernel_vs_plain_argmax_agreement": agree32,
+                       "required_agreement": MIN_ARGMAX_AGREEMENT,
+                       "in_situ": {"calls": in_situ32.calls,
+                                   "max_err_over_max_plain": in_situ32.worst,
+                                   "plain": "attention_ref; expert_ffn_ref "
+                                            "in f64",
+                                   "tol": {"flash_attention": 1e-5,
+                                           "moe_gmm": 1e-5}},
+                       "decode_vs_prefill": {
+                           "positions": DECODE_CHECK_LEN,
+                           "max_abs_logit_diff": dec_diff32,
+                           "max_abs_prefill_logit": dec_scale32,
+                           "tol_over_max_logit": DECODE_TOL,
+                           "argmax_agreement": dec_agree32}},
+          "in_situ_bf16": {"calls": in_situ.calls,
+                           "max_err_over_max_plain": in_situ.worst,
+                           "tol": {"flash_attention": 2e-2,
+                                   "moe_gmm": 2e-2}},
+          "requests": {"batch": N_REQUESTS, "prompt_len": PROMPT_LEN,
+                       "gen_len": GEN_LEN,
+                       "prefill_first_call_s": prefill_first_s,
+                       "prefill_s": prefill_s,
+                       "prefill_tokens_per_s":
+                           N_REQUESTS * PROMPT_LEN / prefill_s,
+                       "prefill_plain_s": prefill_plain_s,
+                       "kernel_vs_plain_max_abs_logit_diff": diff,
+                       "kernel_vs_plain_argmax_agreement": agree,
+                       "plain_versions_vs_plain_max_abs_logit_diff":
+                           floor_diff,
+                       "plain_versions_vs_plain_argmax_agreement":
+                           floor_agree, **served},
+          "long_prefill": {"batch": LONG_BATCH,
+                           "seq_len": PREFILL_32K.seq_len,
+                           "cut": f"{PREFILL_32K.name} batch "
+                                  f"{PREFILL_32K.global_batch} -> "
+                                  f"{LONG_BATCH}",
+                           "seconds": long_s,
+                           "tokens_per_s": LONG_BATCH * PREFILL_32K.seq_len
+                           / long_s,
+                           "in_situ_bf16": {
+                               "plain": "flash_mha, expert_ffn_einsum",
+                               "calls": in_situ_long.calls,
+                               "max_err_over_max_plain": in_situ_long.worst,
+                               "tol": {"flash_attention": 2e-2,
+                                       "moe_gmm": 2e-2}}},
+          "launches_per_prefill": {"flash_attention": L, "moe_gmm": L},
+          "launches_per_decode_step": {"flash_attention": 0, "moe_gmm": L},
+          "kernel_launches": launches,
+          "peak_device_bytes": peak})
+    del params
+    torch.cuda.empty_cache()
+    d, f = cfg.d_model, cfg.d_ff
+    return launches, {
+        "moe_gmm": {"long": (E, capacity(cfg, LONG_BATCH * PREFILL_32K.seq_len),
+                             d, f),
+                    "request": (E, capacity(cfg, N_REQUESTS * PROMPT_LEN), d, f),
+                    "decode": (E, capacity(cfg, N_REQUESTS), d, f)},
+        "fa": {"long": (LONG_BATCH, PREFILL_32K.seq_len, cfg.n_heads,
+                        cfg.n_kv_heads, cfg.head_dim, cfg.window),
+               "request": (N_REQUESTS, PROMPT_LEN, cfg.n_heads,
+                           cfg.n_kv_heads, cfg.head_dim, cfg.window)}}
 
 
 def _leaves(tree):
@@ -986,6 +1342,13 @@ def ssd_cost(B, S, H, P, N, chunk):
     nbytes = 2 * (2 * B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + H) \
         + 4 * B * H * N * P
     return flops, nbytes
+
+
+def gmm_cost(GE, E, C, d, f):
+    """(FLOP, bytes) the grouped expert FFN needs: three products of
+    2 C d f per group; x, the three weight tensors and out moved once in
+    bf16."""
+    return 6 * GE * C * d * f, 2 * (2 * GE * C * d + 3 * E * d * f)
 
 
 def bound(flops, nbytes):
@@ -1087,6 +1450,80 @@ def model_kernel_entries(fa_ops, ssd_ops, launches, shapes, worst):
     return entries
 
 
+def moe_kernel_entries(fa_ops, gmm_ops, launches, shapes, worst):
+    """The kernels-line entry of moe_gmm at mixtral-8x22b's three
+    capacities (the long prefill's, the requests', a decode step's): ms
+    beside the bound and beside three `torch.bmm` (cuBLAS) with the
+    elementwise silu * u between them, a yardstick that is not one call;
+    the plain version (`expert_ffn_ref`, f32) at the requests' capacity.
+    Also flash_attention at mixtral's two prefill shapes (sliding window
+    4096, hd 128, GQA 48/8), returned for K2's entry. By CUDA events; these
+    launches are not the main path's and are not counted in it."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    bf16 = torch.bfloat16
+    E, C_long, d, f = shapes["moe_gmm"]["long"]
+    _, wg, wu, wd = gmm_inputs(E, E, 8, d, f, bf16, gen, True)
+
+    def bmm3(x):
+        g = torch.bmm(x, wg)
+        u = torch.bmm(x, wu)
+        return torch.bmm(torch.nn.functional.silu(g) * u, wd)
+
+    at = {}
+    for name, reps in (("decode", 20), ("request", 5), ("long", 2)):
+        _, C, _, _ = shapes["moe_gmm"][name]
+        x = torch.randn((E, C, d), generator=gen, device="cuda").to(bf16)
+        ms = cuda_time_ms(lambda: gmm_ops.expert_ffn(x, wg, wu, wd,
+                                                     use_kernel=True), reps)
+        bmm_ms = cuda_time_ms(lambda: bmm3(x), reps)
+        b, by = bound(*gmm_cost(E, E, C, d, f))
+        at[name] = {"shape_ge_c_d_f": [E, C, d, f], "ms": ms,
+                    "bound_ms": b, "bound_by": by, "three_bmm_ms": bmm_ms}
+        if name == "request":
+            plain_ms = cuda_time_ms(lambda: gmm_ops.expert_ffn(
+                x, wg, wu, wd, use_kernel=False), reps=2)
+            err = check_close("moe_gmm at the requests' capacity",
+                              gmm_ops.expert_ffn(x, wg, wu, wd,
+                                                 use_kernel=True),
+                              gmm_ops.expert_ffn(x, wg, wu, wd,
+                                                 use_kernel=False),
+                              2e-2, 2e-2)
+        del x
+    del wg, wu, wd
+    entry = {
+        "name": "moe_gmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/kernel.py:53",
+        "launches": launches["moe_gmm"],
+        "max_abs_err": max(worst["moe_gmm"], err), "dtype": "bfloat16",
+        "shape_ge_c_d_f": at["long"]["shape_ge_c_d_f"],
+        "ms": at["long"]["ms"], "bound_ms": at["long"]["bound_ms"],
+        "bound_by": at["long"]["bound_by"], "library_ms": None,
+        "library_call": "none: no single PyTorch call computes the grouped "
+                        "SwiGLU FFN; three_bmm_ms times three torch.bmm "
+                        "with silu(g) * u between them, as a yardstick only",
+        "three_bmm_ms": at["long"]["three_bmm_ms"],
+        "plain_ms": plain_ms,
+        "plain_shape_ge_c_d_f": at["request"]["shape_ge_c_d_f"],
+        "ms_at_plain_shape": at["request"]["ms"],
+        "bound_ms_at_plain_shape": at["request"]["bound_ms"],
+        "three_bmm_ms_at_plain_shape": at["request"]["three_bmm_ms"],
+        "decode": at["decode"]}
+
+    fa_extra = {}
+    for name, reps in (("long", 2), ("request", 10)):
+        B, S, H, K, hd, win = shapes["fa"][name]
+        q, k, v = fa_inputs(B, S, H, K, hd, bf16, gen)
+        fa_ms = cuda_time_ms(lambda: fa_ops.flash_attention(
+            q, k, v, window=win, use_kernel=True), reps=reps)
+        b, by = bound(*fa_cost(B, S, H, K, hd, win))
+        del q, k, v
+        fa_extra[f"mixtral_{name}"] = {
+            "shape_b_s_h_k_hd_window": [B, S, H, K, hd, win], "ms": fa_ms,
+            "bound_ms": b, "bound_by": by}
+    return entry, fa_extra
+
+
 def kernels_line(ops_mod, launches, timing, max_abs_err, model_entries):
     """Time sweep_scan on the main path's own buckets and print the
     kernels line: the kernel at the largest bucket beside its bounds,
@@ -1151,6 +1588,8 @@ def main() -> int:
     from repro_torch import core, env
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.sweep_scan import kernel as kernel_mod
@@ -1159,18 +1598,30 @@ def main() -> int:
 
     t_start = time.perf_counter()
     phase_env(env)
-    phase_build([kernel_mod, fa_kernel, ssd_kernel])
+    phase_build([kernel_mod, fa_kernel, ssd_kernel, gmm_kernel])
     max_abs_err = phase_kernel_check(ops_mod, kernel_mod)
-    model_worst = phase_model_kernel_check(fa_ops, ssd_ops)
+    model_worst = phase_model_kernel_check(fa_ops, ssd_ops, gmm_ops)
     # each path is driven with every launch count at 0 just before it
-    reset_counts((ops_mod, fa_ops, ssd_ops))
+    reset_counts((ops_mod, fa_ops, ssd_ops, gmm_ops))
     launches, timing = phase_main_path(core, ops_mod)
-    assert fa_ops.launch_count() == 0 and ssd_ops.launch_count() == 0
+    assert (fa_ops.launch_count(), ssd_ops.launch_count(),
+            gmm_ops.launch_count()) == (0, 0, 0)
     phase_exact_path(core)
-    model_launches, model_shapes = phase_model_path(fa_ops, ssd_ops, ops_mod)
+    model_launches, model_shapes = phase_model_path(fa_ops, ssd_ops, gmm_ops,
+                                                    ops_mod)
+    moe_launches, moe_shapes = phase_moe_path(fa_ops, ssd_ops, gmm_ops,
+                                              ops_mod)
+    # K2 runs on both serving paths: its launches are the two counts
+    by_path = {"model_path": model_launches["flash_attention"],
+               "moe_path": moe_launches["flash_attention"]}
+    model_launches["flash_attention"] = sum(by_path.values())
     model_entries = model_kernel_entries(fa_ops, ssd_ops, model_launches,
                                          model_shapes, model_worst)
-    kernels_line(ops_mod, launches, timing, max_abs_err, model_entries)
+    gmm_entry, fa_moe = moe_kernel_entries(fa_ops, gmm_ops, moe_launches,
+                                           moe_shapes, model_worst)
+    model_entries[0].update(fa_moe, launches_by_path=by_path)
+    kernels_line(ops_mod, launches, timing, max_abs_err,
+                 model_entries + [gmm_entry])
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

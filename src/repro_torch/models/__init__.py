@@ -1,6 +1,6 @@
-"""Model substrate in PyTorch for the serving path: dense GQA, Mamba2/SSD,
-hybrid (zamba2) and the audio/vlm stubs, the counterpart of
-`repro.models` (family `moe` is the next slice)."""
+"""Model substrate in PyTorch for the serving path: dense GQA, top-k MoE,
+Mamba2/SSD, hybrid (zamba2) and the audio/vlm stubs, the counterpart of
+`repro.models`."""
 from .config import (ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K, TRAIN_4K,
                      ArchConfig, ShapeConfig)
 from .layers import count_params, init_params

@@ -23,6 +23,9 @@ from ..env import DeviceLike, resolve_device
 # a block's ParamDefs (one slice per layer; per group and layer in the
 # hybrid)
 STACKED_AXES = ("layers", "layers_inner", "groups")
+# axes that index a set of matrices, not an input width: the stacking
+# axes and the experts of a MoE layer ([E, d, f] is E projections of d)
+SET_AXES = STACKED_AXES + ("experts",)
 
 @dataclass(frozen=True)
 class ParamDef:
@@ -58,11 +61,12 @@ def def_leaves(defs) -> List[ParamDef]:
 
 def fan_in(d: ParamDef) -> int:
     """The input width of a projection: its first axis that is not a
-    stacking axis (`STACKED_AXES`); a vector's own length. The reference
-    takes the first axis whatever it is, so a stacked projection comes
-    out with std 1/sqrt(n_layers) there (ROADMAP Queue C)."""
+    stacking or experts axis (`SET_AXES`); a vector's own length. The
+    reference takes the first axis whatever it is, so a stacked
+    projection comes out with std 1/sqrt(n_layers) there (ROADMAP
+    Queue C)."""
     k = 0
-    while k < len(d.logical) - 1 and d.logical[k] in STACKED_AXES:
+    while k < len(d.logical) - 1 and d.logical[k] in SET_AXES:
         k += 1
     own = d.shape[k:]
     return own[0] if len(own) > 1 else max(own[-1], 1)
@@ -76,7 +80,11 @@ def init_params(generator: torch.Generator, defs,
     times ``scale`` (default 1/sqrt(`fan_in`), where the port reads the
     input width past the stacking axes), zeros, ones, a log-uniform dt
     bias in [1e-3, 1e-1] and A in [1, 16] stored as log. The bits differ
-    from the reference's (another generator)."""
+    from the reference's (another generator). In a ``dtype`` other than
+    f32, a normal leaf stacked over layers is drawn slice by slice along
+    its stacking axis (other bits than one f32 draw of the whole leaf,
+    the same distribution), so the peak is one slice of f32 beside the
+    parameters."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator lives on {generator.device}, "
@@ -97,8 +105,17 @@ def init_params(generator: torch.Generator, defs,
                 1.0, 16.0, generator=generator)
             return torch.log(u).to(dtype)
         scale = d.scale if d.scale is not None else 1.0 / math.sqrt(fan_in(d))
-        w = torch.randn(d.shape, generator=generator, dtype=f32, device=dev)
-        return w.mul_(scale).to(dtype)
+        if dtype == f32 or d.logical[0] not in STACKED_AXES:
+            w = torch.randn(d.shape, generator=generator, dtype=f32, device=dev)
+            return w.mul_(scale).to(dtype)
+        # a stacked leaf in a narrower dtype is drawn one slice at a time
+        # into its final storage: no f32 copy of the whole leaf (25.8 GB
+        # for 8 layers of mixtral-8x22b's wg) is ever held
+        w = torch.empty(d.shape, dtype=dtype, device=dev)
+        for i in range(d.shape[0]):
+            w[i] = torch.randn(d.shape[1:], generator=generator, dtype=f32,
+                               device=dev).mul_(scale)
+        return w
 
     return tree_map_defs(one, defs)
 

@@ -4,11 +4,11 @@
 Families
 --------
 dense / audio / vlm : embed -> loop(attention+MLP blocks) -> norm -> head
+moe                 : same, MLP replaced by top-k MoE (`models.moe`)
 ssm                 : embed -> loop(Mamba2 SSD blocks) -> norm -> head
 hybrid (zamba2)     : groups of Mamba2 blocks with ONE shared attention+MLP
                       block applied after each group (shared weights, as in
                       Zamba2's shared transformer block)
-moe                 : not ported yet; raises `NotImplementedError`
 
 `audio`/`vlm` backbones consume precomputed frame/patch embeddings
 ([B, S, d_model]) through the frontend stub.
@@ -30,11 +30,10 @@ from ..env import DeviceLike, resolve_device
 from .config import ArchConfig
 from .layers import ParamDef, count_params, init_params, rms_norm, tree_map_defs
 from .ssm import SSMState, init_ssm_state, ssm_block_apply, ssm_block_defs
-from .transformer import (MOE_LATER, KVCache, block_apply, block_defs,
-                          init_kv_cache)
+from .transformer import KVCache, block_apply, block_defs, init_kv_cache
 
 VOCAB_PAD = 256
-ATTN_FAMILIES = ("dense", "audio", "vlm")
+ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
 def padded_vocab(v: int) -> int:
@@ -48,8 +47,6 @@ def _stack_defs(defs, n: int, axis_name: str = "layers"):
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family == "moe" or cfg.uses_moe:
-        raise NotImplementedError(MOE_LATER)
     if cfg.family not in ATTN_FAMILIES + ("ssm", "hybrid"):
         raise ValueError(cfg.family)
 
@@ -82,7 +79,9 @@ def model_defs(cfg: ArchConfig) -> Dict:
 def init(generator: torch.Generator, cfg: ArchConfig,
          dtype: Optional[torch.dtype] = None, device: DeviceLike = "cuda"):
     """Random parameters for ``cfg`` from ``generator`` (on ``device``),
-    in ``dtype`` (default: the config's ``param_dtype``)."""
+    in ``dtype`` (default: the config's ``param_dtype``). Asked for in
+    bf16, stacked leaves are drawn without a whole f32 copy
+    (`layers.init_params`), as a full-width MoE layer needs."""
     return init_params(generator, model_defs(cfg),
                        dtype or getattr(torch, cfg.param_dtype), device)
 
@@ -175,8 +174,9 @@ def forward(params, tokens_or_embeds: torch.Tensor, cfg: ArchConfig, *,
             use_kernel: bool = False) -> torch.Tensor:
     """Prefill forward -> logits [B, S, vocab_padded]. With
     ``use_kernel=True`` every attention block runs the flash-attention
-    kernel and every Mamba2 block the SSD kernel (on CUDA tensors; on
-    CPU tensors their plain versions)."""
+    kernel, every Mamba2 block the SSD kernel and every MoE block the
+    grouped expert-FFN kernel (on CUDA tensors; on CPU tensors their
+    plain versions)."""
     _check_family(cfg)
     params = cast_params(params, cfg)
     x = _embed(params, tokens_or_embeds, cfg)

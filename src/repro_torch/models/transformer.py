@@ -1,11 +1,12 @@
 """Decoder-only transformer blocks: GQA attention (full causal or sliding
-window), SwiGLU MLP, RMSNorm — in PyTorch, the counterpart of
-`repro.models.transformer`.
+window), SwiGLU MLP or top-k MoE (`models.moe`), RMSNorm — in PyTorch,
+the counterpart of `repro.models.transformer`.
 
 `flash_mha` is the plain blocked online-softmax attention the model
 takes with ``use_kernel=False``; with ``use_kernel=True`` prefill goes
 through the hand-written CUDA kernel of `kernels.flash_attention`.
-Decode (`decode_mha`) runs no kernel, as in the reference.
+Decode (`decode_mha`) runs no kernel, as in the reference; the MoE
+layer runs its expert kernel in prefill and in decode alike.
 
 The reference's `repro.parallel.sharding.constrain_*` calls are no-ops
 without a device mesh and are left out here (sharding is ROADMAP Queue A
@@ -21,11 +22,9 @@ import torch
 from ..env import DeviceLike, resolve_device
 from .config import ArchConfig
 from .layers import ParamDef, apply_rope, rms_norm, rope_tables, swiglu
+from .moe import moe_apply, moe_defs
 
 NEG_INF = -1e30
-MOE_LATER = ("family 'moe' (mixture of experts: models/moe.py and its "
-             "kernel K4, moe_gmm) is not ported yet: it is the next slice "
-             "of the port (ROADMAP Queue A item 10, Queue B K4)")
 
 
 def attn_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
@@ -53,14 +52,16 @@ def mlp_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
 
 
 def block_defs(cfg: ArchConfig) -> Dict:
-    if cfg.uses_moe:
-        raise NotImplementedError(MOE_LATER)
-    return {
+    defs = {
         "ln1": ParamDef((cfg.d_model,), ("embed",), init="ones"),
         "attn": attn_defs(cfg),
         "ln2": ParamDef((cfg.d_model,), ("embed",), init="ones"),
-        "mlp": mlp_defs(cfg),
     }
+    if cfg.uses_moe:
+        defs["moe"] = moe_defs(cfg)
+    else:
+        defs["mlp"] = mlp_defs(cfg)
+    return defs
 
 
 # ----------------- attention ------------------------------------------------------
@@ -230,11 +231,12 @@ def attention(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
 def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
                 cache: Optional[KVCache] = None, use_kernel: bool = False
                 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    if cfg.uses_moe:
-        raise NotImplementedError(MOE_LATER)
     h, new_cache = attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
                              cfg, cache=cache, use_kernel=use_kernel)
     x = x + h
     y = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + swiglu(y, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
+    if cfg.uses_moe:
+        x = x + moe_apply(p["moe"], y, cfg, use_kernel=use_kernel)
+    else:
+        x = x + swiglu(y, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
     return x, new_cache

@@ -186,6 +186,7 @@ def test_import_leaves_jax_and_repro_out():
             "import repro_torch.models.interop, repro_torch.train.step\n"
             "import repro_torch.kernels.flash_attention.ops\n"
             "import repro_torch.kernels.ssd.ops\n"
+            "import repro_torch.kernels.moe_gmm.ops\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n"

@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA card and `nvcc`: they launch the
-hand-written kernels (sweep_scan, flash_attention, ssd), which have no
-CPU mode.
+hand-written kernels (sweep_scan, flash_attention, ssd, moe_gmm), which
+have no CPU mode.
 
 Every test here carries the ``gpu`` marker and decides inside the test
 whether a card is present, skipping with the reason when it is not. The
@@ -12,9 +12,10 @@ PyTorch with CUDA and nothing of the reference's stack:
 Tolerance for sweep_scan: none. The recurrence is `max` and `+` in f64
 in one order, so the kernel is `torch.equal` to its plain version, and a
 sweep on the card equals the same sweep on the CPU element for element.
-For flash_attention and ssd: the reference's `_tol` (f32 1e-5, bf16
-2e-2), both sides computing in f32 in another order; the SSD state at
-1e-4 / 5e-2 as the reference holds its own kernel.
+For flash_attention, ssd and moe_gmm: the reference's `_tol` (f32 1e-5,
+bf16 2e-2), both sides computing in f32 in another order (moe_gmm's bf16
+path rounds act to bf16 once); the SSD state at 1e-4 / 5e-2 as the
+reference holds its own kernel.
 """
 import numpy as np
 import pytest
@@ -24,6 +25,8 @@ import repro_torch.core as T
 from repro_torch.core import workloads as TW
 from repro_torch import configs as TC
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.moe_gmm import ops as gmm_ops
+from repro_torch.kernels.moe_gmm.ref import expert_ffn_ref as gmm_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.sweep_scan import kernel as t_kernel
 from repro_torch.kernels.sweep_scan import ops as t_ops
@@ -179,3 +182,78 @@ def test_zamba2_forward_kernels_equal_plain_path_in_f32():
     assert fa_ops.launch_count() == cfg.n_layers // cfg.shared_attn_every
     assert ssd_ops.launch_count() == cfg.n_layers
     torch.testing.assert_close(fast, plain, rtol=1e-4, atol=5e-4)
+
+
+# (G, E, C, d, f): tests/test_kernels.py's moe_gmm rows, a capacity over
+# 128 and no multiple of it, and mixtral's decode capacity at full width
+GMM_SHAPES = [(1, 4, 64, 32, 64), (2, 2, 128, 64, 128), (1, 8, 32, 16, 48),
+              (4, 2, 64, 128, 64), (1, 4, 136, 32, 64), (1, 8, 8, 6144, 16384)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_kernel_equals_plain_version(dtype):
+    need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for G, E, C, d, f in GMM_SHAPES:
+        # unit tokens, weights at 1/sqrt(input width) as the model draws them
+        x = torch.randn((G * E, C, d), generator=g, device="cuda").to(dtype)
+        wg, wu, wd = (
+            (torch.randn(shape, generator=g, device="cuda") / shape[1] ** 0.5)
+            .to(dtype) for shape in ((E, d, f), (E, d, f), (E, f, d)))
+        # f32: the plain version evaluated in f64, since its own f32
+        # evaluation strays ~2e-5 from the exact sums at full width
+        want = gmm_ops.expert_ffn(x, wg, wu, wd, use_kernel=False) \
+            if dtype == torch.bfloat16 else gmm_ref(
+                *(t.double() for t in (x, wg, wu, wd)))
+        before = gmm_ops.launch_count()
+        got = gmm_ops.expert_ffn(x, wg, wu, wd, use_kernel=True)
+        torch.cuda.synchronize()
+        assert gmm_ops.launch_count() == before + 1
+        assert got.dtype == dtype and got.shape == x.shape
+        torch.testing.assert_close(got.double(), want.double(),
+                                   **tol(dtype))
+
+
+@pytest.mark.gpu
+def test_moe_gmm_raises_instead_of_falling_back():
+    """A CUDA tensor the kernel cannot take raises; the plain version is
+    never taken in its place, and nothing is counted."""
+    need_card()
+    x = torch.zeros(2, 8, 12, device="cuda")           # d = 12: no 16-byte rows
+    w = torch.zeros(2, 12, 16, device="cuda")
+    wd = torch.zeros(2, 16, 12, device="cuda")
+    before = gmm_ops.launch_count()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gmm_ops.expert_ffn(x, w, w, wd, use_kernel=True)
+    assert gmm_ops.launch_count() == before
+
+
+@pytest.mark.gpu
+def test_mixtral_forward_kernels_equal_plain_path_in_f32():
+    """The reduced MoE model in f32 on the card: one K2 and one K4
+    launch per layer in prefill, one K4 launch per layer in a decode
+    step, the logits of both paths equal within the model tolerance."""
+    need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.models import init_decode_state
+    from repro_torch.train.step import make_serve_step
+    cfg = TC.get("mixtral-8x22b").reduced().replace(dtype="float32")
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device="cuda")
+    plain = forward(params, toks, cfg, use_kernel=False)
+    fa_ops.reset_launch_count()
+    gmm_ops.reset_launch_count()
+    fast = forward(params, toks, cfg, use_kernel=True)
+    torch.cuda.synchronize()
+    assert fa_ops.launch_count() == cfg.n_layers
+    assert gmm_ops.launch_count() == cfg.n_layers
+    torch.testing.assert_close(fast, plain, rtol=1e-4, atol=5e-4)
+    state = init_decode_state(cfg, 2, 8, dtype=torch.float32)
+    _, logits, state = make_serve_step(cfg, use_kernel=True)(params, state,
+                                                             toks[:, 0])
+    torch.cuda.synchronize()
+    assert fa_ops.launch_count() == cfg.n_layers
+    assert gmm_ops.launch_count() == 2 * cfg.n_layers
+    torch.testing.assert_close(logits, plain[:, 0], rtol=1e-4, atol=5e-4)

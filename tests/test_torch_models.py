@@ -53,8 +53,8 @@ from repro_torch.train.step import make_prefill_step, make_serve_step
 # gives and fights the other test workers for cores
 torch.set_num_threads(1)
 
-SERVED = ["granite-3-2b", "mamba2-1.3b", "zamba2-2.7b"]
-MOE = ["mixtral-8x22b", "qwen3-moe-235b-a22b"]
+SERVED = ["granite-3-2b", "mamba2-1.3b", "zamba2-2.7b", "mixtral-8x22b",
+          "qwen3-moe-235b-a22b"]
 F32 = dict(rtol=1e-4, atol=5e-4)
 
 
@@ -118,8 +118,7 @@ def test_configs_equal_field_for_field(name):
          t.param_count(), t.active_param_count())
     assert [dataclasses.asdict(s) for s in JC.cells(j)] == \
         [dataclasses.asdict(s) for s in TC.cells(t)]
-    if not t.uses_moe:
-        assert t_n_params(t) == j_n_params(j)
+    assert t_n_params(t) == j_n_params(j)
     assert sorted(TC.ARCHS) == sorted(JC.ARCHS)
 
 
@@ -129,17 +128,6 @@ def test_zamba2_full_size_counts():
     assert (cfg.n_layers, cfg.d_model, cfg.vocab, cfg.n_heads, cfg.head_dim,
             cfg.ssm_heads, cfg.ssm_state, cfg.d_inner // cfg.ssm_heads) == \
         (54, 2560, 32000, 32, 80, 80, 64, 64)
-
-
-@pytest.mark.parametrize("name", MOE)
-def test_moe_raises_not_implemented(name):
-    cfg = TC.get(name).reduced()
-    for fn in (lambda: model_defs(cfg), lambda: t_n_params(cfg),
-               lambda: init(torch.Generator(), cfg, device="cpu"),
-               lambda: init_decode_state(cfg, 1, 8, device="cpu"),
-               lambda: t_forward({}, torch.zeros(1, 4, dtype=torch.long), cfg)):
-        with pytest.raises(NotImplementedError, match="K4"):
-            fn()
 
 
 # ---------------- parameters and layers -------------------------------------------
@@ -175,18 +163,63 @@ def test_init_matches_the_reference_defs_and_distributions():
     ("mamba2-1.3b", ("blocks", "ssm", "in_proj")),
     ("zamba2-2.7b", ("blocks", "ssm", "in_proj")),
     ("zamba2-2.7b", ("shared", "mlp", "wd")),
+    ("mixtral-8x22b", ("blocks", "moe", "wd")),
+    ("mixtral-8x22b", ("blocks", "moe", "wg")),
 ])
 def test_init_scales_projections_by_their_input_width(name, path):
-    # the stacking axes (layers; groups x layers in the hybrid) are not
-    # the fan-in: std is 1/sqrt(the projection's own input width)
+    # the stacking axes (layers; groups x layers in the hybrid) and the
+    # experts axis are not the fan-in: std is 1/sqrt(the projection's own
+    # input width)
     cfg = TC.get(name).reduced()
     d = model_defs(cfg)
     p = init(torch.Generator().manual_seed(0), cfg, device="cpu")
     for key in path:
         d, p = d[key], p[key]
-    width = d.shape[[ax not in TL.STACKED_AXES for ax in d.logical].index(True)]
+    width = d.shape[[ax not in TL.SET_AXES for ax in d.logical].index(True)]
     assert TL.fan_in(d) == width
     assert abs(float(p.std()) * np.sqrt(width) - 1.0) < 0.05
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "qwen3-moe-235b-a22b"])
+def test_moe_params_carry_over_leaf_for_leaf(name):
+    """The reference's `moe` subtree (router [L,d,E], wg/wu [L,E,d,f],
+    wd [L,E,f,d]) converts key for key and bit for bit, into the shapes
+    the port's own defs give."""
+    jc, tc = pair(name)
+    jp, tp = carried_params(jc)
+    L, d, f, E = tc.n_layers, tc.d_model, tc.d_ff, tc.n_experts
+    moe = tp["blocks"]["moe"]
+    assert {k: tuple(v.shape) for k, v in moe.items()} == {
+        "router": (L, d, E), "wg": (L, E, d, f), "wu": (L, E, d, f),
+        "wd": (L, E, f, d)}
+    assert "mlp" not in tp["blocks"]
+    defs = model_defs(tc)["blocks"]["moe"]
+    assert {k: v.shape for k, v in defs.items()} == \
+        {k: tuple(v.shape) for k, v in moe.items()}
+    for k, v in moe.items():
+        np.testing.assert_array_equal(v.numpy(),
+                                      np.asarray(jp["blocks"]["moe"][k]))
+
+
+def test_bf16_init_draws_stacked_leaves_slice_by_slice():
+    """Asked for in bf16, a stacked leaf is drawn one layer at a time
+    into bf16 storage: same distribution, deterministic, and the f32
+    draw (the families served before) is unchanged by it."""
+    cfg = TC.get("mixtral-8x22b").reduced().replace(n_layers=3)
+    p16 = init(torch.Generator().manual_seed(0), cfg, dtype=torch.bfloat16,
+               device="cpu")
+    again = init(torch.Generator().manual_seed(0), cfg,
+                 dtype=torch.bfloat16, device="cpu")
+    wg = p16["blocks"]["moe"]["wg"]
+    assert wg.dtype == torch.bfloat16 and wg.shape[0] == 3
+    assert torch.equal(wg, again["blocks"]["moe"]["wg"])
+    for i in range(3):
+        assert abs(float(wg[i].float().std()) * np.sqrt(cfg.d_model) - 1) < 0.05
+    assert not torch.equal(wg[0], wg[1])
+    p32 = init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    embed = torch.randn(p32["embed"].shape, generator=g)
+    assert torch.equal(p32["embed"], embed)        # first leaf, one f32 draw
 
 
 def test_cast_params_semantics():
