@@ -32,7 +32,10 @@ line:
   model_kernel_check  flash_attention, ssd and moe_gmm kernels vs their
                plain PyTorch versions ON THE CARD, f32 and bf16, on the
                reference's kernel-test shapes, zamba2-2.7b's, and
-               mixtral-8x22b's and qwen3-moe-235b-a22b's expert shapes
+               mixtral-8x22b's and qwen3-moe-235b-a22b's expert shapes,
+               and the tensor-core kernels' edges (ragged S, windows of
+               1, 63 and 4096 keys, GQA 6:1, C = 1 and 65); two bf16
+               moe_gmm calls must be `torch.equal`
   model_path   the serving path at full width and depth: zamba2-2.7b
                (54 layers, d_model 2560, vocab 32000, random weights from
                a seeded generator), 8 requests of 512-token prompts
@@ -59,6 +62,7 @@ line:
                bound, the plain version's time beside the kernel's at a
                shape the plain version can take, and a library call's
                time where one PyTorch call computes the same function
+               (for flash_attention also at mixtral's windowed shapes)
   <card name, power limit>   as nvidia-smi prints them
   {"ok": true, "device": {...}}   the last line
 """
@@ -130,23 +134,31 @@ MIN_ARGMAX_AGREEMENT = 0.98
 # while a wrong cache slot or state moves logits by their whole scale.
 DECODE_CHECK_LEN = 64
 DECODE_TOL = 2e-2
-# (B, S, H, K, hd, window): tests/test_kernels.py's flash-attention rows
-# and zamba2's request shape
+# (B, S, H, K, hd, window): tests/test_kernels.py's flash-attention rows,
+# zamba2's request shape, and the tensor-core kernel's edges: S no multiple
+# of the 64-row tiles, windows of 1 and 63 keys, mixtral's window 4096 at
+# S = 4160 (one tile past it) with GQA 6:1 at hd 128, hd 80 at S = 100
 FA_CHECK = [(2, 256, 4, 2, 64, 0), (1, 128, 4, 4, 32, 0),
             (2, 256, 8, 2, 64, 64), (1, 512, 2, 1, 128, 128),
-            (3, 192, 6, 3, 16, 0), (2, 512, 32, 32, 80, 0)]
+            (3, 192, 6, 3, 16, 0), (2, 512, 32, 32, 80, 0),
+            (1, 200, 6, 1, 128, 0), (1, 300, 4, 2, 64, 1),
+            (1, 300, 4, 2, 64, 63), (1, 4160, 12, 2, 128, 4096),
+            (1, 100, 4, 4, 80, 0)]
 # (B, S, H, P, N, chunk): tests/test_kernels.py's SSD rows and zamba2's
 SSD_CHECK = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 16, 8, 64),
              (2, 96, 3, 8, 4, 32), (1, 64, 8, 64, 32, 64),
              (2, 512, 80, 64, 64, 256)]
 # (G, E, C, d, f, drawn at the model's scale): tests/test_kernels.py's
-# moe_gmm rows; mixtral-8x22b's capacity at 8 x 512 prompt tokens and in
-# decode (batch 8); qwen3-moe-235b-a22b's at 8 x 512 (C = 320, no
-# multiple of 128: the reference's kernel refuses it) with 128 experts
+# moe_gmm rows (d = 16, f = 48 among them); mixtral-8x22b's capacity at
+# 8 x 512 prompt tokens and in decode (batch 8); qwen3-moe-235b-a22b's at
+# 8 x 512 (C = 320, no multiple of 128: the reference's kernel refuses it)
+# with 128 experts; the bf16 kernel's edges: C = 1 at full width, C = 65
+# (one slot past the 64-row tile, 128-row tiles then)
 GMM_CHECK = [(1, 4, 64, 32, 64, False), (2, 2, 128, 64, 128, False),
              (1, 8, 32, 16, 48, False), (4, 2, 64, 128, 64, False),
              (1, 8, 1280, 6144, 16384, True), (1, 8, 8, 6144, 16384, True),
-             (1, 128, 320, 4096, 1536, True)]
+             (1, 128, 320, 4096, 1536, True), (1, 8, 1, 6144, 16384, True),
+             (2, 4, 65, 256, 384, False)]
 
 # the MoE serving path: mixtral-8x22b at full width (d_model 6144, 48
 # heads of 128, 8 kv heads, 8 experts of d_ff 16384, top-2, window 4096,
@@ -619,6 +631,10 @@ def phase_model_kernel_check(fa_ops, ssd_ops, gmm_ops):
                                        model_scale)
             plain = gmm_ops.expert_ffn(x, wg, wu, wd, use_kernel=False)
             got = gmm_ops.expert_ffn(x, wg, wu, wd, use_kernel=True)
+            # the bf16 kernel sums in one fixed order (no atomics): a second
+            # call gives the same bits; the f32 kernel's atomics do not
+            again = gmm_ops.expert_ffn(x, wg, wu, wd, use_kernel=True) \
+                if bf16 else None
             # f32: the plain version evaluated in f64 (its own f32
             # evaluation strays ~2e-5 at full width); bf16: as it is
             want = plain if bf16 else expert_ffn_ref(
@@ -626,17 +642,20 @@ def phase_model_kernel_check(fa_ops, ssd_ops, gmm_ops):
             torch.cuda.synchronize()
             tag = f"moe_gmm {dtype} G,E,C,d,f={G},{E},{C},{d},{f}"
             err = check_close(tag, got, want, rt, rt)
+            equal = None if again is None else torch.equal(got, again)
+            assert equal is not False, f"{tag}: two calls differ"
             worst["moe_gmm"] = max(worst["moe_gmm"], err)
             cases.append({"kernel": "moe_gmm", "dtype": str(dtype),
                           "shape": [G, E, C, d, f], "tol": rt,
                           "oracle": "expert_ffn_ref in " +
                                     ("f32" if bf16 else "f64"),
                           "max_abs_err": err,
+                          "two_calls_torch_equal": equal,
                           "plain_f32_vs_oracle_max_abs_err_not_held":
                               None if bf16 else float(
                                   (plain.double() - want).abs().max()),
                           "max_abs_plain": float(want.float().abs().max())})
-            del x, wg, wu, wd, want, got, plain
+            del x, wg, wu, wd, want, got, plain, again
     emit({"phase": "model_kernel_check", "cases": len(cases),
           "max_abs_err": worst, "detail": cases})
     return worst
@@ -1358,6 +1377,42 @@ def bound(flops, nbytes):
                                    else "bytes")
 
 
+def sdpa_time_ms(q, k, v, window, reps):
+    """The library yardstick for K2: one `scaled_dot_product_attention`
+    call computing the same function on the same bf16 inputs, timed by
+    CUDA events; the port never calls it. K/V are expanded to q's heads
+    outside the timing. Full causal (or a window no shorter than S) takes
+    `is_causal=True` on the fused backends; a shorter window takes an
+    additive band mask (0 where a key is visible, -inf elsewhere) on the
+    memory-efficient backend, which visits every key tile. Returns (ms,
+    what was called)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+              for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window == 0 or window >= S:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            ms = cuda_time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), reps)
+        return ms, ("torch.nn.functional.scaled_dot_product_attention"
+                    "(is_causal=True), K/V expanded to q's heads, timed as "
+                    "a yardstick only")
+    pos = torch.arange(S, device=q.device)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    mask = torch.zeros((S, S), dtype=q.dtype, device=q.device).masked_fill_(
+        ~band, float("-inf"))[None, None]
+    del band
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        ms = cuda_time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), reps)
+    return ms, ("torch.nn.functional.scaled_dot_product_attention(attn_mask="
+                f"band of {window} keys, additive bf16 [1, 1, S, S]), "
+                "memory-efficient backend, K/V expanded to q's heads, "
+                "timed as a yardstick only")
+
+
 def model_kernel_entries(fa_ops, ssd_ops, launches, shapes, worst):
     """The kernels-line entries of flash_attention and ssd: each kernel at
     the long-prefill shape (ms, bound, library call) and at the request
@@ -1365,33 +1420,22 @@ def model_kernel_entries(fa_ops, ssd_ops, launches, shapes, worst):
     These launches are not the main path's and are not counted in it."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     bf16 = torch.bfloat16
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    def sdpa(q, k, v, is_causal):
-        # the fused backends only: the math one would build S x S scores
-        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
-                          SDPBackend.EFFICIENT_ATTENTION]):
-            return torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=is_causal)
     entries = []
 
     B, S, H, K, hd, win = shapes["fa"]["long"]
-    assert win == 0, "the library yardstick below is full causal"
     q, k, v = fa_inputs(B, S, H, K, hd, bf16, gen)
     fa_long = cuda_time_ms(lambda: fa_ops.flash_attention(
         q, k, v, window=win, use_kernel=True), reps=2)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib_long = cuda_time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), reps=2)
+    lib_long, lib_call = sdpa_time_ms(q, k, v, win, reps=2)
     b_long, by_long = bound(*fa_cost(B, S, H, K, hd, win))
-    del q, k, v, qt, kt, vt
+    del q, k, v
     B2, S2, H2, K2, hd2, win2 = shapes["fa"]["request"]
     q, k, v = fa_inputs(B2, S2, H2, K2, hd2, bf16, gen)
     fa_req = cuda_time_ms(lambda: fa_ops.flash_attention(
         q, k, v, window=win2, use_kernel=True), reps=10)
     plain_req = cuda_time_ms(lambda: fa_ops.flash_attention(
         q, k, v, window=win2, use_kernel=False), reps=10)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib_req = cuda_time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), reps=10)
+    lib_req, _ = sdpa_time_ms(q, k, v, win2, reps=10)
     err = check_close("flash_attention at the request shape",
                       fa_ops.flash_attention(q, k, v, window=win2,
                                              use_kernel=True),
@@ -1406,14 +1450,12 @@ def model_kernel_entries(fa_ops, ssd_ops, launches, shapes, worst):
         "max_abs_err": max(worst["flash_attention"], err),
         "shape_b_s_h_k_hd": [B, S, H, K, hd], "dtype": "bfloat16",
         "ms": fa_long, "bound_ms": b_long, "bound_by": by_long,
-        "library_ms": lib_long,
-        "library_call": "torch.nn.functional.scaled_dot_product_attention"
-                        "(is_causal=True), timed as a yardstick only",
+        "library_ms": lib_long, "library_call": lib_call,
         "plain_ms": plain_req,
         "plain_shape_b_s_h_k_hd": [B2, S2, H2, K2, hd2],
         "ms_at_plain_shape": fa_req, "bound_ms_at_plain_shape": b_req,
         "library_ms_at_plain_shape": lib_req})
-    del q, k, v, qt, kt, vt
+    del q, k, v
 
     B, S, H, P, N, chunk = shapes["ssd"]["long"]
     x, dt, a, b, c = ssd_inputs(B, S, H, P, N, bf16, gen)
@@ -1477,8 +1519,16 @@ def moe_kernel_entries(fa_ops, gmm_ops, launches, shapes, worst):
                                                      use_kernel=True), reps)
         bmm_ms = cuda_time_ms(lambda: bmm3(x), reps)
         b, by = bound(*gmm_cost(E, E, C, d, f))
+        # the bf16 kernel sums in one fixed order: back-to-back calls agree
+        # to the bit
+        first = gmm_ops.expert_ffn(x, wg, wu, wd, use_kernel=True)
+        equal = torch.equal(first, gmm_ops.expert_ffn(x, wg, wu, wd,
+                                                      use_kernel=True))
+        assert equal, f"moe_gmm at C = {C}: two calls differ"
+        del first
         at[name] = {"shape_ge_c_d_f": [E, C, d, f], "ms": ms,
-                    "bound_ms": b, "bound_by": by, "three_bmm_ms": bmm_ms}
+                    "bound_ms": b, "bound_by": by, "three_bmm_ms": bmm_ms,
+                    "two_calls_torch_equal": equal}
         if name == "request":
             plain_ms = cuda_time_ms(lambda: gmm_ops.expert_ffn(
                 x, wg, wu, wd, use_kernel=False), reps=2)
@@ -1508,6 +1558,8 @@ def moe_kernel_entries(fa_ops, gmm_ops, launches, shapes, worst):
         "ms_at_plain_shape": at["request"]["ms"],
         "bound_ms_at_plain_shape": at["request"]["bound_ms"],
         "three_bmm_ms_at_plain_shape": at["request"]["three_bmm_ms"],
+        "two_calls_torch_equal": all(a["two_calls_torch_equal"]
+                                     for a in at.values()),
         "decode": at["decode"]}
 
     fa_extra = {}
@@ -1516,11 +1568,13 @@ def moe_kernel_entries(fa_ops, gmm_ops, launches, shapes, worst):
         q, k, v = fa_inputs(B, S, H, K, hd, bf16, gen)
         fa_ms = cuda_time_ms(lambda: fa_ops.flash_attention(
             q, k, v, window=win, use_kernel=True), reps=reps)
+        lib_ms, lib_call = sdpa_time_ms(q, k, v, win, reps=reps)
         b, by = bound(*fa_cost(B, S, H, K, hd, win))
         del q, k, v
         fa_extra[f"mixtral_{name}"] = {
             "shape_b_s_h_k_hd_window": [B, S, H, K, hd, win], "ms": fa_ms,
-            "bound_ms": b, "bound_by": by}
+            "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
+            "library_call": lib_call}
     return entry, fa_extra
 
 

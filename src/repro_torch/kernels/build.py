@@ -31,7 +31,10 @@ NVCC_FLAGS: Tuple[str, ...] = (
 
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-_LIBS: Dict[Path, ctypes.CDLL] = {}
+# loaded libraries by the arguments that named them: a kernel's wrapper
+# loads its library on every launch, and reading and hashing the sources
+# there again was most of a short launch's host time
+_LIBS: Dict[tuple, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -85,14 +88,18 @@ def load_library(name: str, sources: Sequence[Path],
                  extra_flags: Sequence[str] = (),
                  build_dir: Optional[Path] = None) -> ctypes.CDLL:
     """Build (if needed) and `ctypes`-load a kernel library, once per
-    process and path. Callers set ``argtypes``/``restype`` on the
+    process and set of arguments. Callers set ``argtypes``/``restype`` on the
     functions they use: without them `ctypes` passes a pointer as a
     32-bit int and cuts it. Libraries of different sources build in
     parallel when loaded from several threads (`build_library` writes
-    each to a file of its own, then renames it into place)."""
-    path = build_library(name, sources, extra_flags, build_dir)
-    with _LOCK:
-        lib = _LIBS.get(path)
-        if lib is None:
-            lib = _LIBS[path] = ctypes.CDLL(str(path))
-        return lib
+    each to a file of its own, then renames it into place). Within a
+    process the sources are read and hashed once: a source edited after
+    its first load is rebuilt by the next process, not by this one."""
+    key = (name, tuple(str(s) for s in sources), tuple(extra_flags),
+           str(build_dir))
+    lib = _LIBS.get(key)
+    if lib is None:
+        path = build_library(name, sources, extra_flags, build_dir)
+        with _LOCK:
+            lib = _LIBS.setdefault(key, ctypes.CDLL(str(path)))
+    return lib

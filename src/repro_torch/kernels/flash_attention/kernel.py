@@ -70,8 +70,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          window: int = 0) -> torch.Tensor:
     """Launch the kernel on CUDA tensors in the model layout:
     q [B, Sq, H, hd], k, v [B, Skv, K, hd] -> [B, Sq, H, hd] in q's
-    dtype. Causal; ``window`` > 0 adds a sliding window. Launches on the
-    current stream and does not synchronise."""
+    dtype. Causal; ``window`` > 0 adds a sliding window. Needs 16-byte
+    aligned data (the bf16 kernel copies 16 bytes at a time). Launches on
+    the current stream and does not synchronise."""
     check_inputs(q, k, v, causal=True, window=window)
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
@@ -80,6 +81,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"supported: {HEAD_DIMS}")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
     lib = load()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -61,8 +61,9 @@ def moe_gmm_cuda(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                  wd: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on CUDA tensors: x [G*E, C, d], wg, wu
     [E, d, f], wd [E, f, d] -> [G*E, C, d] in x's dtype. Needs d and f
-    to be multiples of 8 and 16-byte aligned data. Launches on the
-    current stream and does not synchronise."""
+    to be multiples of 8 and 16-byte aligned data. bf16 allocates an act
+    buffer [G*E, C, f] between its two GEMMs. Launches on the current
+    stream and does not synchronise."""
     check_inputs(x, wg, wu, wd)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm_cuda needs CUDA tensors, got {x.device}")
@@ -79,13 +80,14 @@ def moe_gmm_cuda(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     lib = load()
     bf16 = x.dtype == torch.bfloat16
     out = torch.empty_like(x)
-    # the f32 sum over f slices: scratch for bf16, the output itself for f32
-    acc = torch.empty(x.shape, dtype=torch.float32, device=x.device) \
+    # bf16: silu(x wg) * (x wu), rounded once, between the two GEMMs; the
+    # f32 kernel adds into `out` and takes no scratch
+    act = torch.empty((GE, C, f), dtype=x.dtype, device=x.device) \
         if bf16 else out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.moe_gmm_launch(x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-                                 wd.data_ptr(), out.data_ptr(), acc.data_ptr(),
+                                 wd.data_ptr(), out.data_ptr(), act.data_ptr(),
                                  GE, E, C, d, f, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"moe_gmm kernel launch failed: cudaError {err} "

@@ -105,10 +105,15 @@ def test_sweep_on_the_card_equals_sweep_on_the_cpu():
 
 
 # (B, S, H, K, hd, window): tests/test_kernels.py's rows, zamba2's
-# request shape, and a ragged length (S not a multiple of the 64-row tile)
+# request shape, a ragged length (S not a multiple of the 64-row tile),
+# and the tensor-core kernel's edges: S = 200 with GQA 6:1 at hd 128,
+# windows of 1 and 63 keys, mixtral's window 4096 at S = 4160, hd 80 at
+# S = 100 without GQA
 FA_SHAPES = [(2, 256, 4, 2, 64, 0), (1, 128, 4, 4, 32, 0), (2, 256, 8, 2, 64, 64),
              (1, 512, 2, 1, 128, 128), (3, 192, 6, 3, 16, 0),
-             (2, 512, 32, 32, 80, 0), (1, 100, 4, 2, 80, 7)]
+             (2, 512, 32, 32, 80, 0), (1, 100, 4, 2, 80, 7),
+             (1, 200, 6, 1, 128, 0), (1, 300, 4, 2, 64, 1), (1, 300, 4, 2, 64, 63),
+             (1, 4160, 12, 2, 128, 4096), (1, 100, 4, 4, 80, 0)]
 # (B, S, H, P, N, chunk): tests/test_kernels.py's rows and zamba2's
 SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 16, 8, 64),
               (2, 96, 3, 8, 4, 32), (1, 64, 8, 64, 32, 64),
@@ -184,10 +189,13 @@ def test_zamba2_forward_kernels_equal_plain_path_in_f32():
     torch.testing.assert_close(fast, plain, rtol=1e-4, atol=5e-4)
 
 
-# (G, E, C, d, f): tests/test_kernels.py's moe_gmm rows, a capacity over
-# 128 and no multiple of it, and mixtral's decode capacity at full width
+# (G, E, C, d, f): tests/test_kernels.py's moe_gmm rows (d = 16, f = 48
+# among them), a capacity over 128 and no multiple of it, mixtral's decode
+# capacity at full width, and the bf16 kernel's edges in C: 1, 65 (one past
+# the 64-row tile) and 320 (qwen3-moe's capacity at 8 x 512)
 GMM_SHAPES = [(1, 4, 64, 32, 64), (2, 2, 128, 64, 128), (1, 8, 32, 16, 48),
-              (4, 2, 64, 128, 64), (1, 4, 136, 32, 64), (1, 8, 8, 6144, 16384)]
+              (4, 2, 64, 128, 64), (1, 4, 136, 32, 64), (1, 8, 8, 6144, 16384),
+              (1, 8, 1, 256, 512), (1, 8, 65, 512, 384), (1, 8, 320, 1024, 768)]
 
 
 @pytest.mark.gpu
@@ -214,6 +222,24 @@ def test_moe_gmm_kernel_equals_plain_version(dtype):
         assert got.dtype == dtype and got.shape == x.shape
         torch.testing.assert_close(got.double(), want.double(),
                                    **tol(dtype))
+
+
+@pytest.mark.gpu
+def test_moe_gmm_bf16_kernel_is_deterministic():
+    """The bf16 kernel sums over d and over f in one fixed order (no
+    atomics): two calls on the same inputs give the same bits, with one
+    consumer warpgroup (C <= 64) and with two."""
+    need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for G, E, C, d, f in [(1, 8, 8, 512, 1024), (2, 4, 320, 1024, 768)]:
+        x = torch.randn((G * E, C, d), generator=g, device="cuda").bfloat16()
+        wg, wu, wd = (
+            (torch.randn(shape, generator=g, device="cuda") / shape[1] ** 0.5)
+            .bfloat16() for shape in ((E, d, f), (E, d, f), (E, f, d)))
+        first = gmm_ops.expert_ffn(x, wg, wu, wd, use_kernel=True)
+        second = gmm_ops.expert_ffn(x, wg, wu, wd, use_kernel=True)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 @pytest.mark.gpu

@@ -201,6 +201,29 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert a != b and a.parent == tmp_path
 
 
+def test_load_library_builds_and_hashes_once_per_process(monkeypatch,
+                                                          tmp_path):
+    """A wrapper loads its library on every launch: after the first load
+    the same handle comes back without reading or hashing the sources
+    again; other flags name another library."""
+    built = []
+
+    def fake_build(name, sources, extra_flags=(), build_dir=None):
+        built.append(tuple(extra_flags))
+        return tmp_path / f"lib{name}_{len(built)}.so"
+
+    monkeypatch.setattr(t_build, "build_library", fake_build)
+    monkeypatch.setattr(t_build.ctypes, "CDLL", lambda path: object())
+    monkeypatch.setattr(t_build, "_LIBS", {})
+    a = t_build.load_library("k", [t_kernel.SOURCE], build_dir=tmp_path)
+    assert t_build.load_library("k", [t_kernel.SOURCE],
+                                build_dir=tmp_path) is a
+    assert built == [()]
+    c = t_build.load_library("k", [t_kernel.SOURCE], ("-fmad=false",),
+                             build_dir=tmp_path)
+    assert c is not a and built == [(), ("-fmad=false",)]
+
+
 # ---------------- engine dispatch --------------------------------------------------
 
 def _pairs():
