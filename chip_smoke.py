@@ -18,8 +18,10 @@ line:
   kernel_check sweep_scan kernel vs its plain PyTorch version ON THE
                CARD, `torch.equal` on makespan and end (tolerance: none,
                the arithmetic is max and + in f64 in one order), over
-               boundary and multi-tile shapes, in the shared-memory and
-               the device-memory regime, healthy and with 1e30 durations
+               boundary and multi-tile shapes and rows whose deps sit at
+               every hand-over point of the kernel's tile schedule, in
+               the shared-memory and the device-memory regime, healthy
+               and with 1e30 durations
   main_path    the paper's Scenario I at paper scale through the normal
                entry points: BLAST with the 1710 MB database on a
                20-node cluster, a grid over partitioning x chunk size x
@@ -31,7 +33,8 @@ line:
                against the port's `ref_sim`; `Predictor` ref vs exact
   model_kernel_check  flash_attention, ssd and moe_gmm kernels vs their
                plain PyTorch versions ON THE CARD, f32 and bf16, on the
-               reference's kernel-test shapes, zamba2-2.7b's, and
+               reference's kernel-test shapes, zamba2-2.7b's (for ssd
+               also at 4096 tokens: more row-chunks than SMs), and
                mixtral-8x22b's and qwen3-moe-235b-a22b's expert shapes,
                and the tensor-core kernels' edges (ragged S, windows of
                1, 63 and 4096 keys, GQA 6:1, C = 1 and 65); two bf16
@@ -62,7 +65,13 @@ line:
                bound, the plain version's time beside the kernel's at a
                shape the plain version can take, and a library call's
                time where one PyTorch call computes the same function
-               (for flash_attention also at mixtral's windowed shapes)
+               (for flash_attention also at mixtral's windowed shapes);
+               yardsticks that are several calls are named apart (ssd:
+               the model's plain chunked path; moe_gmm: three bmm), ssd's
+               allocation peak of one call is measured, and sweep_scan's
+               one-candidate chain sits beside the latency of one
+               dependent step through shared memory (a point of
+               comparison, not a bound: the chain forwards in registers)
   <card name, power limit>   as nvidia-smi prints them
   {"ok": true, "device": {...}}   the last line
 """
@@ -108,6 +117,9 @@ KB = 1024
 BOUNDARY = [(1, 1, 1, 0), (7, 3, 4, 1), (8, 2, 8, 2), (9, 5, 3, 3),
             (19, 4, 6, 4)]
 MULTI_TILE = [(64, 4, 8, 64), (600, 4, 8, 600), (1024, 3, 8, 1024)]
+# (n_ops, n_cand, n_res, seed): rows whose deps sit where the kernel's
+# schedule changes hands (`adversarial_bucket`), over several 256-row tiles
+ADVERSARIAL = [(1100, 3, 5, 0), (2053, 2, 7, 1)]
 
 # the serving path: zamba2-2.7b at full width and depth. Requests are
 # served as `examples/serve_batch.py` serves them, 8 prompts of 512
@@ -144,10 +156,12 @@ FA_CHECK = [(2, 256, 4, 2, 64, 0), (1, 128, 4, 4, 32, 0),
             (1, 200, 6, 1, 128, 0), (1, 300, 4, 2, 64, 1),
             (1, 300, 4, 2, 64, 63), (1, 4160, 12, 2, 128, 4096),
             (1, 100, 4, 4, 80, 0)]
-# (B, S, H, P, N, chunk): tests/test_kernels.py's SSD rows and zamba2's
+# (B, S, H, P, N, chunk): tests/test_kernels.py's SSD rows and zamba2's,
+# the last at 4096 tokens: 16 chunks x 80 heads = 1280 row-chunks, more
+# than the 132 SMs hold at once
 SSD_CHECK = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 16, 8, 64),
              (2, 96, 3, 8, 4, 32), (1, 64, 8, 64, 32, 64),
-             (2, 512, 80, 64, 64, 256)]
+             (2, 512, 80, 64, 64, 256), (1, 4096, 80, 64, 64, 256)]
 # (G, E, C, d, f, drawn at the model's scale): tests/test_kernels.py's
 # moe_gmm rows (d = 16, f = 48 among them); mixtral-8x22b's capacity at
 # 8 x 512 prompt tokens and in decode (batch 8); qwen3-moe-235b-a22b's at
@@ -191,6 +205,24 @@ def random_bucket(n_ops, n_cand, n_res, seed):
     return res, dur, lag, deps
 
 
+def adversarial_bucket(n_ops, n_cand, n_res, seed, tile):
+    """Rows whose deps sit where sweep_scan's schedule changes hands: at
+    base_k - 1 and base_k (base_k = the tile before the row's), at i - 1
+    (forwarded in a register), at i and i + 1 (not served yet: 0.0), far
+    back across several tiles, and -1."""
+    res, dur, lag, _ = random_bucket(n_ops, n_cand, n_res, seed)
+    rng = np.random.default_rng(seed + 1)
+    deps = np.full((n_cand, n_ops, MAXD), -1, dtype=np.int32)
+    for i in range(n_ops):
+        base_k = (i // tile - 1) * tile
+        pool = [base_k - 1, base_k, i - 1, i, i + 1, i - 3 * tile - 5,
+                i - 2 * tile, -1]
+        pool = [d if 0 <= d < n_ops else -1 for d in pool]
+        for c in range(n_cand):
+            deps[c, i] = rng.choice(pool, MAXD)
+    return res, dur, lag, deps
+
+
 def cuda_time_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn`` over ``reps`` runs, by CUDA events,
     after one warm-up run."""
@@ -204,6 +236,20 @@ def cuda_time_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def alloc_peak_bytes(fn) -> int:
+    """How far one call of ``fn`` raises the caching allocator's peak of
+    allocated bytes above what was allocated before it: its outputs and
+    its scratch, as the run allocated them."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak
 
 
 def phase_env(env):
@@ -270,6 +316,12 @@ def phase_kernel_check(ops_mod, kernel_mod):
                 for r, c in both]
         check(f"N={n_ops},C={n_cand},R={n_res}",
               random_bucket(n_ops, n_cand, n_res, seed), n_res, caps)
+    for n_ops, n_cand, n_res, seed in ADVERSARIAL:
+        caps = [("smem", kernel_mod.MAX_SMEM_BYTES),
+                ("gmem", kernel_mod.load().sweep_scan_base_smem_bytes(n_res))]
+        check(f"N={n_ops},C={n_cand},R={n_res} adversarial deps",
+              adversarial_bucket(n_ops, n_cand, n_res, seed,
+                                 kernel_mod.TILE_ROWS), n_res, caps)
     big = random_bucket(4096, 64, 128, SEED)
     caps = [("smem", kernel_mod.MAX_SMEM_BYTES), ("gmem", small_cap)]
     check("N=4096,C=64,R=128 healthy", big, 128, caps)
@@ -1457,19 +1509,30 @@ def model_kernel_entries(fa_ops, ssd_ops, launches, shapes, worst):
         "library_ms_at_plain_shape": lib_req})
     del q, k, v
 
+    from repro_torch.models.ssm import ssd_chunked
     B, S, H, P, N, chunk = shapes["ssd"]["long"]
     x, dt, a, b, c = ssd_inputs(B, S, H, P, N, bf16, gen)
     ssd_long = cuda_time_ms(lambda: ssd_ops.ssd(
         x, dt, a, b, c, chunk=chunk, use_kernel=True), reps=5)
+    # the model's plain chunked path (cuBLAS einsums, a loop over chunks):
+    # a yardstick of several calls, never called on the kernel path
+    chunked_long = cuda_time_ms(lambda: ssd_chunked(x, dt, a, b, c,
+                                                    chunk=chunk), reps=2)
+    peak_long = alloc_peak_bytes(lambda: ssd_ops.ssd(
+        x, dt, a, b, c, chunk=chunk, use_kernel=True))
     b_long, by_long = bound(*ssd_cost(B, S, H, P, N, chunk))
     del x, dt, a, b, c
     B2, S2, H2, P2, N2, chunk2 = shapes["ssd"]["request"]
     x, dt, a, b, c = ssd_inputs(B2, S2, H2, P2, N2, bf16, gen)
     ssd_req = cuda_time_ms(lambda: ssd_ops.ssd(
         x, dt, a, b, c, chunk=chunk2, use_kernel=True), reps=10)
+    chunked_req = cuda_time_ms(lambda: ssd_chunked(x, dt, a, b, c,
+                                                   chunk=chunk2), reps=10)
     # the plain version is S2 sequential steps of a few launches each
     plain_req = cuda_time_ms(lambda: ssd_ops.ssd(
         x, dt, a, b, c, chunk=chunk2, use_kernel=False), reps=1)
+    peak_req = alloc_peak_bytes(lambda: ssd_ops.ssd(
+        x, dt, a, b, c, chunk=chunk2, use_kernel=True))
     y1, h1 = ssd_ops.ssd(x, dt, a, b, c, chunk=chunk2, use_kernel=True)
     y0, h0 = ssd_ops.ssd(x, dt, a, b, c, chunk=chunk2, use_kernel=False)
     err = max(check_close("ssd y at the request shape", y1, y0, 2e-2, 2e-2),
@@ -1485,10 +1548,16 @@ def model_kernel_entries(fa_ops, ssd_ops, launches, shapes, worst):
         "ms": ssd_long, "bound_ms": b_long, "bound_by": by_long,
         "library_ms": None,
         "library_call": "none: no single PyTorch call computes the chunked "
-                        "SSD scan",
+                        "SSD scan; ssd_chunked_ms times the model's plain "
+                        "chunked path (models/ssm.py::ssd_chunked, cuBLAS "
+                        "einsums in a loop over chunks), as a yardstick only",
+        "ssd_chunked_ms": chunked_long,
+        "alloc_peak_bytes": peak_long,
         "plain_ms": plain_req,
         "plain_shape_b_s_h_p_n_chunk": [B2, S2, H2, P2, N2, chunk2],
-        "ms_at_plain_shape": ssd_req, "bound_ms_at_plain_shape": b_req})
+        "ms_at_plain_shape": ssd_req, "bound_ms_at_plain_shape": b_req,
+        "ssd_chunked_ms_at_plain_shape": chunked_req,
+        "alloc_peak_bytes_at_plain_shape": peak_req})
     return entries
 
 
@@ -1578,7 +1647,8 @@ def moe_kernel_entries(fa_ops, gmm_ops, launches, shapes, worst):
     return entry, fa_extra
 
 
-def kernels_line(ops_mod, launches, timing, max_abs_err, model_entries):
+def kernels_line(ops_mod, kernel_mod, launches, timing, max_abs_err,
+                 model_entries):
     """Time sweep_scan on the main path's own buckets and print the
     kernels line: the kernel at the largest bucket beside its bounds,
     and kernel and plain version side by side (and compared) at the
@@ -1598,6 +1668,14 @@ def kernels_line(ops_mod, launches, timing, max_abs_err, model_entries):
     one = {k: (v[:1].contiguous() if torch.is_tensor(v) else v)
            for k, v in big.items()}
     chain_ms = cuda_time_ms(lambda: run(True, one), reps=3)
+    # the latency of one dependent step through a shared-memory store and
+    # load (the source's probe: one thread, a chain that forwards nothing
+    # in registers). The kernel's chain forwards the row before in
+    # registers and skips that round trip, so this is a point of
+    # comparison for chain_ns_per_step, not a lower bound under it
+    probe_steps = 1 << 20
+    chain_bound_ns = cuda_time_ms(lambda: kernel_mod.chain_probe(probe_steps),
+                                  reps=3) * 1e6 / probe_steps
     # the plain version: one run, no warm-up (tens of seconds of small
     # launches, which a warm-up would not change), the kernel beside it
     t0 = torch.cuda.Event(enable_timing=True)
@@ -1627,6 +1705,7 @@ def kernels_line(ops_mod, launches, timing, max_abs_err, model_entries):
         "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         "chain_ms": chain_ms, "chain_ns_per_step": chain_ms * 1e6 / N,
+        "chain_bound_ns": chain_bound_ns,
         "plain_ms": plain_ms,
         "plain_shape_c_n_r": [mid["res"].shape[0], mid["res"].shape[1],
                               mid["n_resources"]],
@@ -1669,12 +1748,13 @@ def main() -> int:
     by_path = {"model_path": model_launches["flash_attention"],
                "moe_path": moe_launches["flash_attention"]}
     model_launches["flash_attention"] = sum(by_path.values())
-    model_entries = model_kernel_entries(fa_ops, ssd_ops, model_launches,
-                                         model_shapes, model_worst)
+    model_entries = model_kernel_entries(fa_ops, ssd_ops,
+                                         model_launches, model_shapes,
+                                         model_worst)
     gmm_entry, fa_moe = moe_kernel_entries(fa_ops, gmm_ops, moe_launches,
                                            moe_shapes, model_worst)
     model_entries[0].update(fa_moe, launches_by_path=by_path)
-    kernels_line(ops_mod, launches, timing, max_abs_err,
+    kernels_line(ops_mod, kernel_mod, launches, timing, max_abs_err,
                  model_entries + [gmm_entry])
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 

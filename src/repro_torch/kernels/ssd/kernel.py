@@ -29,10 +29,13 @@ def load() -> ctypes.CDLL:
     lib = build.load_library("ssd", [SOURCE])
     if getattr(lib.ssd_launch, "argtypes", None) is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.ssd_launch.argtypes = [p, p, p, p, p, p, p, p,
+                                   i, i, i, i, i, i, i, p]
         lib.ssd_launch.restype = ctypes.c_int
         lib.ssd_shape_supported.argtypes = [i, i]
         lib.ssd_shape_supported.restype = ctypes.c_int
+        lib.ssd_workspace_bytes.argtypes = [i, i, i, i, i, i]
+        lib.ssd_workspace_bytes.restype = ctypes.c_longlong
         lib.ssd_max_chunk.argtypes = []
         lib.ssd_max_chunk.restype = ctypes.c_int
         if lib.ssd_max_chunk() != MAX_CHUNK:
@@ -76,12 +79,23 @@ def check_inputs(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return B, S, H, P, N, L
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """The bf16 stages copy 16 bytes at a time: a view that does not
+    start on a 16-byte boundary is copied once."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *, chunk: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on CUDA tensors in the model layout -> (y
-    [B, S, H, P] in x's dtype, h_final [B, H, N, P] f32). Launches on the
-    current stream and does not synchronise."""
+    [B, S, H, P] in x's dtype, h_final [B, H, N, P] f32). One launch is
+    three CUDA kernels (chunk_state, state_pass, chunk_scan; see the
+    source's head note) on the current stream, through a workspace of
+    the library's ``ssd_workspace_bytes`` (each chunk's cum and dt, the
+    f32 state scratch [B, H, S / L, N, P], the chunk decays) that the
+    caching allocator hands back when the call returns. Does not
+    synchronise."""
     B, S, H, P, N, L = check_inputs(x, dt, a, b, c, chunk)
     if (N, P) not in SHAPES:
         raise ValueError(f"(ssm_state, head_dim) = {(N, P)} has no kernel "
@@ -91,13 +105,17 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ssd_cuda needs CUDA tensors, got {x.device}")
     lib = load()
+    if x.dtype == torch.bfloat16:
+        x, b, c = (_aligned16(t) for t in (x, b, c))
+    nbytes = lib.ssd_workspace_bytes(B, S, H, P, N, L)
     y = torch.empty_like(x)
     h = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
+    ws = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_launch(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                              b.data_ptr(), c.data_ptr(), y.data_ptr(),
-                             h.data_ptr(), B, S, H, P, N, L,
+                             h.data_ptr(), ws.data_ptr(), B, S, H, P, N, L,
                              int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: cudaError {err} "

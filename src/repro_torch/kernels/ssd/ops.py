@@ -8,7 +8,8 @@ For CUDA tensors with ``use_kernel=True`` the kernel is launched or the
 call raises; there is no fallback. The kernel reads b and c per batch
 row for every head, so nothing is broadcast per head on that path (the
 plain version, a test oracle, does broadcast). Every launch adds one to
-a plain integer (`launch_count`).
+a plain integer (`launch_count`): one per `ssd` call, although a launch
+is three CUDA kernels (chunk_state, state_pass, chunk_scan).
 """
 from __future__ import annotations
 

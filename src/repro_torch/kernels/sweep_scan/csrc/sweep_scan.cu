@@ -16,49 +16,178 @@
 // costs eight f64 max/add operations, but every step waits for the one
 // before it through avail[res] and end[dep], so a candidate is a chain
 // of N dependent steps whose length is set by the latency of one
-// dependent load. The only parallel axis is the candidate axis.
+// dependent step. The only parallel axis is the candidate axis.
+// chip_smoke.py times `chain_probe_kernel` below beside the chain: a
+// dependent step through a shared-memory store and load, the step of a
+// chain that forwards nothing in registers. The chain here forwards the
+// row before in registers and skips that round trip, so the probe is a
+// point of comparison, not a lower bound: this chain's own limit is the
+// latency of its f64 select and add, and the issue of the instructions
+// of a step by one thread.
 //
-// What the design does about it: the TPU kernel walks a sequential grid
-// axis with its carry in scratch memory; thread blocks on a GPU run in
-// no order, so here ONE BLOCK OWNS ONE CANDIDATE and a loop inside the
-// block takes the place of that grid axis. The block zeroes avail[R]
-// and end[N] (the unserved-dep-reads-0.0 rule), then walks the op rows
-// in tiles of TILE_ROWS: all threads stage the tile's res/dur/lag/deps
-// into shared memory with coalesced loads (deps as one 16-byte load per
-// row), one thread walks the chain reading only shared memory for its
-// operands, and all threads write the tile's completion times out.
-// avail[R] always lives in shared memory. end[N] lives in shared memory
-// too while it fits (END_IN_SMEM, a dependent load is then a shared
-// memory access), and in the candidate's `end` output row in device
-// memory above that, where the chain thread reads back what it wrote
-// itself (program order makes that safe; most of those reads hit L2).
+// What the design does about it: ONE BLOCK OWNS ONE CANDIDATE (a loop in
+// the block takes the place of the TPU's sequential grid axis), and the
+// block is warp-specialised so that the chain's step touches nothing but
+// shared memory and nothing it could have known earlier:
+// - Lane 0 of warp 0 walks the chain. The other warps (STAGERS) stage the
+//   op rows in tiles of TILE_ROWS into a ring of two tile buffers: tile
+//   k + 1 is staged while the chain walks tile k. They load the rows
+//   through registers (all of a thread's rows in flight at once), not by
+//   cp.async, because they rewrite every row before the chain reads it.
+// - Dependencies are resolved ahead of the chain. For a row i of tile
+//   k + 1 (tile k, being walked, starts at base_k) a dep d is
+//     d < 0 or d >= i:  not served yet (or none): reads 0.0, as the
+//                       reference says (kernel.py:9-11); the stager points
+//                       the slot at a shared 0.0;
+//     d < base_k:       final, since the chain finished those rows before
+//                       tile k began: the stager reads end[d] and folds it
+//                       into the row's partial ready (`pre`) by a max;
+//     base_k <= d < i:  left to the chain, which reads it from the window
+//                       of the last two tiles' end values in shared memory
+//                       that it writes itself as it goes.
+//   A dep on row i - 1 itself is flagged instead, and so is a row whose
+//   resource is row i - 1's (the stagers know both): the chain keeps the
+//   last row's fin and lag in registers and forwards them (its end is
+//   fin + lag, and fin is what avail[res] holds), and such a row loads
+//   its avail from the shared 0.0. So no value the chain loads was
+//   written by the step before: while row i is computed, row i + 1's
+//   window values and avail are loaded (their addresses arrived a step
+//   before), and row i + 2's staged operands. Only a flagged row waits
+//   for the row before, through one +, one max and one + in f64; the
+//   loads and stores ride beside the chain.
+// - The stagers hand each row to the chain as addresses: of its window
+//   values, of its own resolved max (`pre`) in a free slot, of a shared
+//   0.0 for the rest, and of avail[res], so a step spends no instruction
+//   on indexing and takes one max tree over four loaded values.
+// - The chain keeps no makespan: a resource's fin only grows (fin >=
+//   avail[res] + dur), so the max over the ops of fin is the max of the
+//   final avail[R], which the stagers take once the chain is done.
+// - end[N] lives in shared memory while it fits (END_IN_SMEM); the window
+//   is then end itself. Above that, the window is a ring of 2 TILE_ROWS
+//   values in shared memory. The chain writes only shared memory; the
+//   stagers copy each tile's end values out to the candidate's `end`
+//   row in device memory two tiles later (the last two once the chain is
+//   done). avail[R] always lives in shared memory.
+// - Handoff by named barriers, not __syncthreads: FULL[b] (the stagers
+//   arrive when buffer b holds its tile, the chain waits) and EMPTY[b]
+//   (the chain arrives when it has walked buffer b's tile, the stagers
+//   wait before they stage the tile two ahead into it).
 //
-// Arithmetic is fmax and + in f64, in the reference's order; compile
-// with -fmad=false so no later mul+add in this file can contract.
+// Visibility invariant: a stager reads end[d] only for d < base_k, and
+// only after it has passed EMPTY for tile k - 1, at which the chain
+// arrives after its last write of tile k - 1. A barrier orders every
+// memory access made before it against the threads that pass it, so those
+// reads see the chain's values: from shared memory (end, or the ring for
+// tile k - 1, which the chain overwrites only after the stagers hand it
+// tile k + 1) or, below that, from device memory, where the stagers
+// themselves copied the value out before an earlier EMPTY barrier that
+// every stager passed (read through L2, ld.global.cg). The window the
+// chain reads holds the last two tiles, written by the chain itself in
+// program order (its loads and stores of shared memory are volatile, so
+// they keep that order).
+//
+// Exactness: the result is the reference's to the bit. The max over the
+// deps is taken in another grouping than the reference's left-to-right
+// order, and as a compare and a select (`dmax`) rather than fmax; values
+// dominated by another (fin <= fin + lag) are dropped. That is exact for
+// these values: regrouping a max can only change the result through -0.0
+// (max(+0, -0) may return either) or NaN, and neither arises, because
+// durations and lags are >= 0 and finite and every end value is a sum of
+// them starting from +0.0 (x + -0 = x; 1e30 dead-op durations stay
+// finite). Every + is the reference's, on the same operands. Compile with
+// -fmad=false so no later mul+add in this file can contract.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int MAXD = 4;          // dependency slots per op row
-constexpr int TILE_ROWS = 256;   // op rows staged per step of the block loop
-constexpr int THREADS = 128;
+constexpr int TILE_ROWS = 256;   // op rows per tile
+constexpr int WINDOW = 2 * TILE_ROWS;
+constexpr int STAGER_WARPS = 7;
+constexpr int THREADS = 32 * (1 + STAGER_WARPS);
+constexpr int STAGERS = 32 * STAGER_WARPS;
+constexpr int ROWS_PER_STAGER = (TILE_ROWS + STAGERS - 1) / STAGERS;
+// named barriers 1..5 (0 is __syncthreads)
+constexpr int BAR_FULL = 1;      // + buffer
+constexpr int BAR_EMPTY = 3;     // + buffer
+constexpr int BAR_DONE = 5;      // the chain has walked the last tile
+
+__device__ __forceinline__ void bar_sync(int id) {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(THREADS) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+    asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(THREADS) : "memory");
+}
+
+// One staged op row, as the chain reads it: four shared-memory addresses
+// whose values it takes the max of (its window values, `pre` when a slot
+// is free, the shared 0.0 for the rest); `pre`, the max of the deps the
+// stagers resolved (read through its slot); dur; lag; the address the
+// chain loads avail[res] from (the 0.0 when the row before had the same
+// resource, whose fin the chain forwards instead); and the address of
+// avail[res] it stores fin to, with two flag bits: FWD, a dep on the row
+// just before (whose end the chain forwards), and DEP, FWD or the same
+// resource as the row before (start then waits for that row).
+struct Row {
+    int4 slot;
+    double pre, dur, lag;
+    unsigned aload, astore;
+};
+static_assert(sizeof(Row) == 48, "rows are 16-byte aligned");
+constexpr unsigned FWD = 0x80000000u;
+constexpr unsigned DEP = 0x40000000u;
+constexpr unsigned ADDR = 0x3fffffffu;
+// each buffer holds two rows past a tile, which the chain reads (and never
+// walks) when it loads two rows ahead
+constexpr int ROWS_PER_BUF = TILE_ROWS + 2;
+
+// the staged tile buffers; then avail[R], a 0.0, then the window / end
+struct Smem {
+    Row* rows;      // [2][ROWS_PER_BUF]
+    double* avail;  // [R]
+    double* W;      // W[-1] = 0.0; W[i] for END_IN_SMEM, else W[i % WINDOW]
+};
+
+__device__ __forceinline__ Smem carve(void* raw, int R) {
+    Smem s;
+    s.rows = static_cast<Row*>(raw);
+    s.avail = reinterpret_cast<double*>(s.rows + 2 * ROWS_PER_BUF);
+    s.W = s.avail + R + 1;
+    return s;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// the chain's own loads and stores of avail and the window, by address;
+// volatile keeps them in program order with each other
+__device__ __forceinline__ double lds(unsigned a) {
+    double v;
+    asm volatile("ld.shared.f64 %0, [%1];" : "=d"(v) : "r"(a));
+    return v;
+}
+__device__ __forceinline__ void sts(unsigned a, double v) {
+    asm volatile("st.shared.f64 [%0], %1;" ::"r"(a), "d"(v));
+}
+
+// max of two values that are never NaN and never -0.0 (see the head
+// note): a compare and a select, without fmax's NaN handling
+__device__ __forceinline__ double dmax(double a, double b) { return a > b ? a : b; }
+
+template <bool END_IN_SMEM>
+__device__ __forceinline__ int widx(int i) {
+    return END_IN_SMEM ? i : (i & (WINDOW - 1));
+}
 
 template <bool END_IN_SMEM>
 __global__ void __launch_bounds__(THREADS)
 sweep_scan_kernel(const int* __restrict__ res, const double* __restrict__ dur,
                   const double* __restrict__ lag, const int* __restrict__ deps,
-                  double* __restrict__ makespan, double* end_out, int N, int R) {
-    // the 16-byte rows first, so every array keeps its natural alignment
-    // whatever the parity of R and N
+                  double* __restrict__ makespan, double* __restrict__ end_out, int N,
+                  int R) {
     extern __shared__ int4 smem[];
-    int4* deps_s = smem;                                       // [TILE_ROWS]
-    double* avail = reinterpret_cast<double*>(deps_s + TILE_ROWS);  // [R]
-    double* end_s = avail + R;                                 // [N] if END_IN_SMEM
-    double* dur_s = end_s + (END_IN_SMEM ? N : 0);             // [TILE_ROWS]
-    double* lag_s = dur_s + TILE_ROWS;                         // [TILE_ROWS]
-    int* res_s = reinterpret_cast<int*>(lag_s + TILE_ROWS);    // [TILE_ROWS]
-
+    const Smem sm = carve(smem, R);
     const int tid = threadIdx.x;
     const size_t row = static_cast<size_t>(blockIdx.x) * static_cast<size_t>(N);
     res += row;
@@ -66,48 +195,175 @@ sweep_scan_kernel(const int* __restrict__ res, const double* __restrict__ dur,
     lag += row;
     const int4* deps4 = reinterpret_cast<const int4*>(deps) + row;
     end_out += row;
-    double* end = END_IN_SMEM ? end_s : end_out;
 
-    for (int i = tid; i < R; i += THREADS) avail[i] = 0.0;
-    for (int i = tid; i < N; i += THREADS) end[i] = 0.0;
+    for (int i = tid; i < R; i += THREADS) sm.avail[i] = 0.0;
+    if (tid == 0) sm.W[-1] = 0.0;
+    // rows never staged hold valid addresses too (the buffers' own start;
+    // the chain loads through them two rows ahead and never walks them)
+    for (int i = tid; i < 2 * ROWS_PER_BUF * 3; i += THREADS)
+        reinterpret_cast<int4*>(sm.rows)[i] = make_int4(0, 0, 0, 0);
+    __syncthreads();   // the one block-wide barrier: avail and the 0.0 are set
 
-    double mk = 0.0;
-    for (int base = 0; base < N; base += TILE_ROWS) {
-        const int nb = min(TILE_ROWS, N - base);
-        for (int i = tid; i < nb; i += THREADS) {
-            res_s[i] = res[base + i];
-            dur_s[i] = dur[base + i];
-            lag_s[i] = lag[base + i];
-            deps_s[i] = deps4[base + i];
-        }
-        // staged operands (and, first time round, the zeroed carry) are
-        // visible to the chain thread after this barrier
-        __syncthreads();
-        if (tid == 0) {
-            for (int i = 0; i < nb; ++i) {
-                const int4 d = deps_s[i];
-                const double e0 = d.x >= 0 ? end[d.x] : 0.0;
-                const double e1 = d.y >= 0 ? end[d.y] : 0.0;
-                const double e2 = d.z >= 0 ? end[d.z] : 0.0;
-                const double e3 = d.w >= 0 ? end[d.w] : 0.0;
-                double ready = fmax(0.0, e0);
-                ready = fmax(ready, e1);
-                ready = fmax(ready, e2);
-                ready = fmax(ready, e3);
-                const int r = res_s[i];
-                const double start = fmax(ready, avail[r]);
-                const double fin = start + dur_s[i];
-                avail[r] = fin;
-                end[base + i] = fin + lag_s[i];
-                mk = fmax(mk, fin);
+    const int n_tiles = (N + TILE_ROWS - 1) / TILE_ROWS;
+    if (tid < 32) {
+        // ---- the chain: lane 0 walks, the warp takes part in the barriers
+        const int lane = tid;
+        // the last row walked: its fin and lag
+        double fin_last = 0.0, l_last = 0.0;
+        const unsigned w0 = smem_addr(sm.W);
+        for (int k = 0; k < n_tiles; ++k) {
+            const int b = k & 1;
+            bar_sync(BAR_FULL + b);
+            if (lane == 0) {
+                const int base = k * TILE_ROWS;
+                const int nb = min(TILE_ROWS, N - base);
+                const Row* rw = sm.rows + b * ROWS_PER_BUF;
+                // row 0's operands and window values (every row a window slot
+                // names was stored before this tile's barrier), row 1's operands
+                double d = rw[0].dur, l = rw[0].lag;
+                unsigned as = rw[0].astore;
+                double e0, e1, e2, e3;
+                {
+                    const int4 w = rw[0].slot;
+                    e0 = lds(w.x), e1 = lds(w.y), e2 = lds(w.z), e3 = lds(w.w);
+                }
+                double av = lds(rw[0].aload);
+                int4 w1 = rw[1].slot;
+                double d1 = rw[1].dur, l1 = rw[1].lag;
+                unsigned al1 = rw[1].aload, as1 = rw[1].astore;
+#pragma unroll 2
+                for (int li = 0; li < nb; ++li) {
+                    // row li + 2's staged operands, and row li + 1's window
+                    // values and avail, whose addresses arrived a step ago.
+                    // No slot names the row just before, and no avail load
+                    // its resource (both are forwarded in registers), so
+                    // every value loaded here was stored by an earlier step.
+                    const Row& r2 = rw[li + 2];
+                    const int4 w2 = r2.slot;
+                    const double d2 = r2.dur, l2 = r2.lag;
+                    const unsigned al2 = r2.aload, as2 = r2.astore;
+                    const double f0 = lds(w1.x), f1 = lds(w1.y), f2 = lds(w1.z),
+                                 f3 = lds(w1.w);
+                    const double av1 = lds(al1);
+                    // row li. x: what start does not owe to the row just
+                    // walked; y: what it does, its end (a dep on it) or its
+                    // fin (its resource), and fin <= end since lag >= 0
+                    const double x = dmax(dmax(dmax(e0, e1), dmax(e2, e3)), av);
+                    const double y = fin_last + ((as & FWD) ? l_last : 0.0);
+                    const double fin = ((as & DEP) ? dmax(x, y) : x) + d;
+                    sts(as & ADDR, fin);
+                    sts(w0 + 8u * static_cast<unsigned>(widx<END_IN_SMEM>(base + li)), fin + l);
+                    fin_last = fin;
+                    l_last = l;
+                    d = d1, l = l1, as = as1;
+                    e0 = f0, e1 = f1, e2 = f2, e3 = f3, av = av1;
+                    w1 = w2;
+                    d1 = d2, l1 = l2, al1 = al2, as1 = as2;
+                }
             }
+            __syncwarp();
+            if (k + 2 < n_tiles) bar_arrive(BAR_EMPTY + b);
         }
-        __syncthreads();
-        if (END_IN_SMEM) {
-            for (int i = tid; i < nb; i += THREADS) end_out[base + i] = end_s[base + i];
+        bar_arrive(BAR_DONE);
+    } else {
+        // ---- the stagers
+        const int st = tid - 32;
+        const unsigned zero = smem_addr(sm.W - 1);
+        // end values of tile t out to device memory, from shared memory
+        // (end itself, or the window ring, which holds the last two tiles)
+        auto copy_out = [&](int t) {
+            const int base = t * TILE_ROWS, nb = min(TILE_ROWS, N - base);
+            for (int li = st; li < nb; li += STAGERS)
+                end_out[base + li] = sm.W[widx<END_IN_SMEM>(base + li)];
+        };
+        for (int k = 0; k < n_tiles; ++k) {
+            const int b = k & 1;
+            // buffer b held tile k - 2, and every end value below base_{k-1}
+            // is final once the chain has walked tile k - 2
+            if (k >= 2) {
+                bar_sync(BAR_EMPTY + b);
+                copy_out(k - 2);
+            }
+            const int base = k * TILE_ROWS;
+            const int lo = base - TILE_ROWS;        // base of the tile being walked
+            const int nb = min(TILE_ROWS, N - base);
+            int4 dv[ROWS_PER_STAGER];
+            int rv[ROWS_PER_STAGER], rp[ROWS_PER_STAGER];
+            double duv[ROWS_PER_STAGER], lav[ROWS_PER_STAGER];
+#pragma unroll
+            for (int j = 0; j < ROWS_PER_STAGER; ++j) {
+                const int li = st + j * STAGERS;
+                if (li < nb) {
+                    const int i = base + li;
+                    dv[j] = deps4[i];
+                    rv[j] = res[i];
+                    rp[j] = i > 0 ? res[i - 1] : -1;
+                    duv[j] = dur[i];
+                    lav[j] = lag[i];
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < ROWS_PER_STAGER; ++j) {
+                const int li = st + j * STAGERS;
+                if (li >= nb) continue;
+                const int i = base + li;
+                const int dd[MAXD] = {dv[j].x, dv[j].y, dv[j].z, dv[j].w};
+                Row& rw = sm.rows[b * ROWS_PER_BUF + li];
+                unsigned slot[MAXD];
+                bool fwd = false;
+                double pre = 0.0;
+#pragma unroll
+                for (int q = 0; q < MAXD; ++q) {
+                    const int d = dd[q];
+                    slot[q] = zero;                     // not served yet / none: 0.0
+                    if (d < 0 || d >= i) continue;
+                    if (d == i - 1) {                   // forwarded by the chain
+                        fwd = true;
+                    } else if (d < lo) {                // final: resolved here
+                        // tile k - 2 is still in the window; what lies below
+                        // it was copied out before this tile's EMPTY barrier
+                        const double e = (END_IN_SMEM || d >= lo - TILE_ROWS)
+                                             ? sm.W[widx<END_IN_SMEM>(d)]
+                                             : __ldcg(end_out + d);
+                        pre = dmax(pre, e);
+                    } else {                            // left to the chain
+                        slot[q] = smem_addr(sm.W + widx<END_IN_SMEM>(d));
+                    }
+                }
+                // pre goes in the first free slot (with four window deps
+                // nothing was resolved here, and pre is 0.0)
+                bool placed = false;
+#pragma unroll
+                for (int q = 0; q < MAXD; ++q)
+                    if (!placed && slot[q] == zero) {
+                        slot[q] = smem_addr(&rw.pre);
+                        placed = true;
+                    }
+                const bool same = rp[j] == rv[j];
+                const unsigned a = smem_addr(sm.avail + rv[j]);
+                rw.slot = make_int4(slot[0], slot[1], slot[2], slot[3]);
+                rw.pre = pre;
+                rw.dur = duv[j];
+                rw.lag = lav[j];
+                rw.aload = same ? zero : a;
+                rw.astore = a | (fwd ? FWD : 0u) | (fwd || same ? DEP : 0u);
+            }
+            bar_arrive(BAR_FULL + b);
+        }
+        // the last two tiles, once the chain is done with them; and the
+        // makespan, max over the ops of fin: a resource's fin only grows
+        // (fin >= avail[res] + dur), so it is the max of the final avail[R]
+        bar_sync(BAR_DONE);
+        for (int t = max(0, n_tiles - 2); t < n_tiles; ++t) copy_out(t);
+        if (st < 32) {
+            double mk = 0.0;
+            for (int r = st; r < R; r += 32) mk = dmax(mk, sm.avail[r]);
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+                mk = dmax(mk, __shfl_xor_sync(0xffffffffu, mk, off));
+            if (st == 0) makespan[blockIdx.x] = mk;
         }
     }
-    if (tid == 0) makespan[blockIdx.x] = mk;
 }
 
 template <bool END_IN_SMEM>
@@ -124,18 +380,43 @@ cudaError_t launch(const int* res, const double* dur, const double* lag, const i
     return cudaGetLastError();
 }
 
+// The latency of one dependent step through shared memory: one thread
+// runs `steps` steps of the form of a chain without register forwarding
+// (a window load that depends on the previous step's store, avail[r],
+// max, two +, the stores) with one dependency on the row before and one
+// resource. A point of comparison for the chain, not a bound under it
+// (see the head note). Not on any path of the simulator; timed by
+// chip_smoke.py.
+__global__ void chain_probe_kernel(double* out, int steps) {
+    __shared__ double W[WINDOW + 1];
+    __shared__ double avail[2];
+    if (threadIdx.x != 0) return;
+    for (int i = 0; i <= WINDOW; ++i) W[i] = 0.0;
+    avail[0] = avail[1] = 0.0;
+    double mk = 0.0;
+    for (int i = 0; i < steps; ++i) {
+        const double e = W[(i + WINDOW - 1) & (WINDOW - 1)];
+        const double fin = dmax(dmax(0.0, e), avail[0]) + 1.0;
+        avail[0] = fin;
+        W[i & (WINDOW - 1)] = fin + 0.5;
+        mk = dmax(mk, fin);
+    }
+    out[0] = mk;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes the kernel needs besides end[N]: avail[R] plus one
-// staged tile. The wrapper adds 8*N when it picks the shared-memory regime.
+// Shared-memory bytes the kernel needs besides end[N]: two staged tiles,
+// avail[R], the 0.0 and the device-memory regime's window. The wrapper
+// adds 8*N when it picks the shared-memory regime.
 int sweep_scan_base_smem_bytes(int R) {
-    return static_cast<int>(sizeof(double) * R +
-                            TILE_ROWS * (2 * sizeof(double) + sizeof(int4) + sizeof(int)));
+    return static_cast<int>(2 * ROWS_PER_BUF * sizeof(Row) + sizeof(double) * (R + 1 + WINDOW));
 }
 
 int sweep_scan_maxd() { return MAXD; }
+int sweep_scan_tile_rows() { return TILE_ROWS; }
 
 // res i32[C,N], dur/lag f64[C,N], deps i32[C,N,MAXD] -> makespan f64[C],
 // end f64[C,N]; all contiguous device pointers. Launches on `stream`
@@ -157,6 +438,15 @@ int sweep_scan_launch(const void* res, const void* dur, const void* lag, const v
         static_cast<const int*>(res), static_cast<const double*>(dur),
         static_cast<const double*>(lag), static_cast<const int*>(deps),
         static_cast<double*>(makespan), static_cast<double*>(end), C, N, R, base, s));
+}
+
+// One thread, `steps` dependent steps in shared memory (see
+// chain_probe_kernel); out f64[1]. Launches on `stream`.
+int sweep_scan_chain_probe(void* out, int steps, void* stream) {
+    if (steps <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    chain_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<double*>(out), steps);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -21,6 +21,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "sweep_scan.cu"
 # later fused duration prologue (mul + add) from contracting unnoticed
 EXTRA_FLAGS = ("-fmad=false",)
 MAXD = 4
+# op rows per staged tile, as in the source (the window the chain reads
+# is the last two tiles); `load` checks it against the library
+TILE_ROWS = 256
 # most dynamic shared memory one block may ask for on Hopper (227 KB)
 MAX_SMEM_BYTES = 232448
 
@@ -35,10 +38,15 @@ def load() -> ctypes.CDLL:
         lib.sweep_scan_launch.restype = ctypes.c_int
         lib.sweep_scan_base_smem_bytes.argtypes = [i]
         lib.sweep_scan_base_smem_bytes.restype = ctypes.c_int
-        lib.sweep_scan_maxd.argtypes = []
-        lib.sweep_scan_maxd.restype = ctypes.c_int
+        lib.sweep_scan_chain_probe.argtypes = [p, i, p]
+        lib.sweep_scan_chain_probe.restype = ctypes.c_int
+        for name in ("sweep_scan_maxd", "sweep_scan_tile_rows"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         if lib.sweep_scan_maxd() != MAXD:
             raise RuntimeError("sweep_scan library built for another MAXD")
+        if lib.sweep_scan_tile_rows() != TILE_ROWS:
+            raise RuntimeError("sweep_scan library built for another TILE_ROWS")
     return lib
 
 
@@ -76,7 +84,12 @@ def sweep_scan_cuda(res: torch.Tensor, dur: torch.Tensor, lag: torch.Tensor,
     f64[C, N], deps i32[C, N, MAXD] -> (makespan f64[C], end f64[C, N]).
 
     Indices are trusted, as in the reference: ``0 <= res < n_resources``
-    and ``deps < N``. ``max_smem_bytes`` caps the dynamic shared memory
+    and ``deps < N``. The result equals the plain version's to the bit
+    when ``dur`` and ``lag`` are finite and >= 0 (no NaN, no -0.0), as
+    the simulator's are: the kernel takes its maxes in another grouping,
+    by compare and select, and forwards the row before's fin where the
+    reference reads avail (see the head note of the source); outside
+    that domain the two may differ. ``max_smem_bytes`` caps the dynamic shared memory
     one block may take: while ``end[N]`` fits under it the completion
     times live in shared memory, above it in the ``end`` output row in
     device memory (lower the cap to force that regime at a small N).
@@ -104,3 +117,21 @@ def sweep_scan_cuda(res: torch.Tensor, dur: torch.Tensor, lag: torch.Tensor,
                            f"(C={C}, N={N}, R={n_resources}, "
                            f"end_in_smem={end_in_smem})")
     return makespan, end
+
+
+def chain_probe(steps: int, device="cuda") -> torch.Tensor:
+    """Launch the source's latency probe: one thread, ``steps`` dependent
+    steps, each through a store and a load of shared memory (a chain that
+    forwards nothing in registers). The kernel's chain forwards the row
+    before in registers and skips that round trip, so the probe is a
+    point of comparison, not a lower bound of its step. Returns its
+    f64[1] output; time it by CUDA events. No path of the simulator runs
+    it."""
+    lib = load()
+    out = torch.empty((1,), dtype=torch.float64, device=device)
+    with torch.cuda.device(out.device):
+        err = lib.sweep_scan_chain_probe(
+            out.data_ptr(), steps, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sweep_scan chain probe failed: cudaError {err}")
+    return out

@@ -51,8 +51,10 @@ def sweep_scan(res: torch.Tensor, dur: torch.Tensor, lag: torch.Tensor,
     deps i32[C, N, MAXD] -> (makespan f64[C], end f64[C, N]).
 
     ``use_kernel`` is decided by the caller; both paths are element-wise
-    equal. ``max_smem_bytes`` is passed to the kernel launch (see
-    `kernel.sweep_scan_cuda`)."""
+    equal when ``dur`` and ``lag`` are finite and >= 0 (no NaN, no
+    -0.0), as the simulator's durations and lags are (see
+    `kernel.sweep_scan_cuda`). ``max_smem_bytes`` is passed to the kernel
+    launch."""
     _kernel.check_inputs(res, dur, lag, deps, n_resources)
     if not use_kernel or res.device.type == "cpu":
         return sweep_scan_ref(res, dur, lag, deps, n_resources=n_resources)

@@ -17,7 +17,6 @@ bf16 2e-2), both sides computing in f32 in another order (moe_gmm's bf16
 path rounds act to bf16 once); the SSD state at 1e-4 / 5e-2 as the
 reference holds its own kernel.
 """
-import numpy as np
 import pytest
 import torch
 
@@ -32,7 +31,8 @@ from repro_torch.kernels.sweep_scan import kernel as t_kernel
 from repro_torch.kernels.sweep_scan import ops as t_ops
 from repro_torch.models import forward, init
 
-MAXD = 4
+from torch_scan_buckets import adversarial_bucket, random_bucket
+
 # (n_ops, n_cand, n_res, seed)
 SHAPES = [(1, 1, 1, 0), (7, 3, 4, 1), (8, 2, 8, 2), (9, 5, 3, 3),
           (19, 4, 6, 4), (600, 4, 8, 9)]
@@ -41,20 +41,6 @@ SHAPES = [(1, 1, 1, 0), (7, 3, 4, 1), (8, 2, 8, 2), (9, 5, 3, 3),
 def need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-
-
-def random_bucket(n_ops, n_cand, n_res, seed):
-    """A valid padded scan bucket: deps point strictly earlier or -1."""
-    rng = np.random.default_rng(seed)
-    res = rng.integers(0, n_res, (n_cand, n_ops), dtype=np.int32)
-    dur = rng.uniform(0.01, 1.0, (n_cand, n_ops))
-    lag = rng.uniform(0.0, 0.1, (n_cand, n_ops))
-    deps = np.full((n_cand, n_ops, MAXD), -1, dtype=np.int32)
-    for i in range(1, n_ops):
-        k = int(rng.integers(0, MAXD + 1))
-        if k:
-            deps[:, i, :k] = rng.integers(0, i, (n_cand, k))
-    return res, dur, lag, deps
 
 
 @pytest.mark.gpu
@@ -102,6 +88,26 @@ def test_sweep_on_the_card_equals_sweep_on_the_cpu():
     assert [e.index for e in eg] == [e.index for e in ec]
     assert [e.scan_makespan for e in eg] == [e.scan_makespan for e in ec]
     assert [e.makespan for e in eg] == [e.makespan for e in ec]
+
+
+@pytest.mark.gpu
+def test_kernel_equals_plain_version_on_adversarial_deps():
+    """Deps at every hand-over point of the warp-specialised schedule,
+    over several tiles, in both memory regimes: `torch.equal`."""
+    need_card()
+    for n_ops, n_cand, n_res, seed in [(1100, 3, 5, 0), (2053, 2, 7, 1)]:
+        args = [torch.from_numpy(a).cuda()
+                for a in adversarial_bucket(n_ops, n_cand, n_res, seed,
+                                              t_kernel.TILE_ROWS)]
+        mk_p, end_p = t_ops.sweep_scan(*args, n_resources=n_res,
+                                       use_kernel=False)
+        base = t_kernel.load().sweep_scan_base_smem_bytes(n_res)
+        for cap in (t_kernel.MAX_SMEM_BYTES, base):
+            mk_k, end_k = t_ops.sweep_scan(*args, n_resources=n_res,
+                                           use_kernel=True,
+                                           max_smem_bytes=cap)
+            torch.cuda.synchronize()
+            assert torch.equal(mk_k, mk_p) and torch.equal(end_k, end_p)
 
 
 # (B, S, H, K, hd, window): tests/test_kernels.py's rows, zamba2's
@@ -166,6 +172,39 @@ def test_ssd_kernel_equals_plain_version(dtype):
         htol = dict(rtol=5e-2, atol=5e-2) if dtype == torch.bfloat16 \
             else dict(rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(h1, h0, **htol)
+
+
+# zamba2-2.7b's SSD at a long prompt (16 chunks a row, 1280 row-chunks:
+# more than the card's 132 SMs hold at once) and at the request shape
+SSD_ZAMBA2 = [(1, 4096, 80, 64, 64, 256), (8, 512, 80, 64, 64, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_ZAMBA2)
+def test_ssd_kernel_at_zamba2_shapes(B, S, H, P, N, chunk, dtype):
+    """The three-stage kernel (one launch counted) against the plain
+    version at zamba2's widths, with zamba2's decay strength (A in
+    [1, 16])."""
+    need_card()
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    x = (randn(B, S, H, P) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(randn(B, S, H))
+    a = 1.0 + 15.0 * torch.rand(H, generator=g, device="cuda")
+    b, c = ((randn(B, S, N) * 0.5).to(dtype) for _ in "bc")
+    y0, h0 = ssd_ops.ssd(x, dt, a, b, c, chunk=chunk, use_kernel=False)
+    before = ssd_ops.launch_count()
+    y1, h1 = ssd_ops.ssd(x, dt, a, b, c, chunk=chunk, use_kernel=True)
+    torch.cuda.synchronize()
+    assert ssd_ops.launch_count() == before + 1
+    torch.testing.assert_close(y1.float(), y0.float(), **tol(dtype))
+    htol = dict(rtol=5e-2, atol=5e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h1, h0, **htol)
 
 
 @pytest.mark.gpu

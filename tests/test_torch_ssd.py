@@ -18,12 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.ssd.kernel import ssd_kernel as j_ssd_kernel
 from repro.kernels.ssd.ops import ssd as j_ssd
 from repro.kernels.ssd.ref import ssd_ref as j_ssd_ref
 from repro.models.ssm import ssd_chunked as j_ssd_chunked
 
 from repro_torch.kernels.ssd import kernel as t_kernel
 from repro_torch.kernels.ssd import ops as t_ops
+from repro_torch.kernels.ssd import ref as t_ref
 from repro_torch.models.interop import tensor_from_numpy
 from repro_torch.models.ssm import ssd_chunked as t_ssd_chunked
 from repro_torch.models.ssm import ssd_step as t_ssd_step
@@ -189,3 +191,120 @@ def test_kernel_entry_refuses_what_it_cannot_launch():
     with pytest.raises(ValueError, match="CUDA"):
         t_kernel.ssd_cuda(tx, tdt, ta, tb, tc, chunk=256)
     assert (64, 64) in t_kernel.SHAPES
+
+
+# ---------------- the kernel's three stages, in plain PyTorch ------------------------
+
+def bh_layout(jx, jdt_, ja, jb, jc):
+    """Model layout -> the reference kernel's [B*H, ...] rows."""
+    B, S, H, P = jx.shape
+    N = jb.shape[-1]
+    return (jx.transpose(0, 2, 1, 3).reshape(B * H, S, P),
+            jdt_.transpose(0, 2, 1).reshape(B * H, S), jnp.tile(ja, B),
+            jnp.repeat(jb[:, None], H, 1).reshape(B * H, S, N),
+            jnp.repeat(jc[:, None], H, 1).reshape(B * H, S, N))
+
+
+def from_bh(y, h, B, S, H, P, N):
+    return (as_np(y).reshape(B, H, S, P).transpose(0, 2, 1, 3),
+            as_np(h).reshape(B, H, N, P))
+
+
+def zamba2_decay_inputs(B, S, H, P, N, seed):
+    """zamba2's decay strength: A drawn in [1, 16] as its `ssm_alog` init
+    draws it, dt = softplus(normal), so |cum| reaches the hundreds within
+    a 64-step chunk and exp(cum_t - cum_s) spans the f32 range."""
+    (jx, jdt_, _, jb, jc), (tx, tdt, _, tb, tc) = inputs(B, S, H, P, N, seed)
+    a = np.random.default_rng(seed + 1).uniform(1.0, 16.0, (H,))
+    ja = jnp.asarray(a, jnp.float32)
+    return (jx, jdt_, ja, jb, jc), (tx, tdt, tensor_from_numpy(
+        np.asarray(ja), "cpu"), tb, tc)
+
+
+STAGED_ROWS = ROWS + [(1, 256, 2, 64, 64, 64)]   # the last: zamba2's decay
+
+
+def staged_inputs(B, S, H, P, N, chunk, jdt=jnp.float32):
+    if (B, S, H, P, N, chunk) == STAGED_ROWS[-1]:
+        j, t = zamba2_decay_inputs(B, S, H, P, N, 21)
+        if jdt != jnp.float32:
+            j = (j[0].astype(jdt), j[1], j[2], j[3].astype(jdt),
+                 j[4].astype(jdt))
+            t = tuple(tensor_from_numpy(np.asarray(v), "cpu") for v in j)
+        return j, t
+    return inputs(B, S, H, P, N, 3 * S + N, jdt)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", STAGED_ROWS)
+def test_staged_decomposition_matches_reference_in_f32(B, S, H, P, N, chunk):
+    """chunk_state -> state_pass (h_in in place) -> chunk_scan, with the
+    kernel's scratch layouts, against the reference's sequential oracle
+    and its Pallas kernel in interpret mode, at 1e-5. At zamba2's decay
+    strength the Pallas kernel, which sums cum in f32, is itself 2.7e-5
+    (of |y| ~12) from its own oracle; there the stages, which sum cum in
+    f64, are held at 1e-5 to the oracle and must be at least as close to
+    it as the Pallas kernel is."""
+    j, t = staged_inputs(B, S, H, P, N, chunk)
+    y, h = t_ref.ssd_staged_ref(*t, chunk=chunk)
+    assert y.shape == (B, S, H, P) and h.shape == (B, H, N, P)
+    fy, fh = from_bh(*j_ssd_ref(*bh_layout(*j)), B, S, H, P, N)
+    ky, kh = from_bh(*j_ssd_kernel(*bh_layout(*j), chunk=chunk,
+                                   interpret=True), B, S, H, P, N)
+    np.testing.assert_allclose(as_np(y), fy, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(as_np(h), fh, rtol=1e-5, atol=1e-5)
+    if (B, S, H, P, N, chunk) == STAGED_ROWS[-1]:
+        for got, pallas, oracle in ((y, ky, fy), (h, kh, fh)):
+            assert np.abs(as_np(got) - oracle).max() <= \
+                np.abs(pallas - oracle).max()
+    else:
+        np.testing.assert_allclose(as_np(y), ky, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(as_np(h), kh, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", STAGED_ROWS)
+def test_staged_decomposition_with_bf16_rounding_points(B, S, H, P, N, chunk):
+    """bf16 inputs with every rounding point of the bf16 kernel emulated
+    (exp(seg - cum) xdt and h_in rounded to bf16 once each, the weights
+    W dt as a bf16 pair): within `_tol`'s 2e-2 of the reference, the
+    state within 5e-2."""
+    j, t = staged_inputs(B, S, H, P, N, chunk, jnp.bfloat16)
+    y, h = t_ref.ssd_staged_ref(*t, chunk=chunk, bf16_points=True)
+    assert y.dtype == torch.bfloat16
+    fy, fh = from_bh(*j_ssd_ref(*bh_layout(*j)), B, S, H, P, N)
+    np.testing.assert_allclose(as_np(y), fy, **y_tol("bfloat16"))
+    np.testing.assert_allclose(as_np(h), fh, **h_tol("bfloat16"))
+
+
+def test_state_pass_writes_h_in_in_place():
+    """h_in[0] = 0 and h_in[c + 1] = exp(seg_c) h_in[c] + s_c, written
+    over s_c; the returned state is the one after the last chunk, and
+    the carried states equal those of the chunked model path run up to
+    each chunk boundary."""
+    (_, _, _, _, _), (tx, tdt, ta, tb, tc) = inputs(1, 128, 2, 16, 8, 31)
+    s, eseg = t_ref.chunk_state_ref(tx, tdt, ta, tb, chunk=32)
+    s_c = s.clone()
+    h = t_ref.state_pass_ref(s, eseg)
+    assert torch.equal(s[:, :, 0], torch.zeros_like(s[:, :, 0]))
+    for ci in range(3):
+        want = eseg[:, :, ci, None, None] * s[:, :, ci] + s_c[:, :, ci]
+        torch.testing.assert_close(s[:, :, ci + 1], want)
+        _, h_prefix = t_ssd_chunked(tx[:, :32 * (ci + 1)],
+                                    tdt[:, :32 * (ci + 1)], ta,
+                                    tb[:, :32 * (ci + 1)],
+                                    tc[:, :32 * (ci + 1)], chunk=32)
+        torch.testing.assert_close(s[:, :, ci + 1], h_prefix, rtol=1e-5,
+                                   atol=1e-5)
+    _, h_all = t_ssd_chunked(tx, tdt, ta, tb, tc, chunk=32)
+    torch.testing.assert_close(h, h_all, rtol=1e-5, atol=1e-5)
+
+
+def test_chunk_scan_masks_the_exponent():
+    """At 40x the decay the deltas above the diagonal overflow exp; the
+    chunk_scan stage never takes them and stays finite."""
+    (_, _, _, _, _), (tx, tdt, ta, tb, tc) = inputs(1, 64, 2, 8, 4, 17)
+    tdt = tdt * 40.0
+    y, h = t_ref.ssd_staged_ref(tx, tdt, ta, tb, tc, chunk=64)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    py, ph = t_ops.ssd(tx, tdt, ta, tb, tc, chunk=64, use_kernel=False)
+    torch.testing.assert_close(y, py, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, ph, rtol=1e-4, atol=1e-4)

@@ -25,31 +25,18 @@ from repro_torch.kernels.sweep_scan import kernel as t_kernel
 from repro_torch.kernels.sweep_scan import ops as t_ops
 from repro_torch.kernels.sweep_scan import ref as t_ref
 
+from torch_scan_buckets import MAXD, adversarial_bucket, random_bucket
+
 # the CPU paths step through tiny tensors one op at a time, where
 # PyTorch's intra-op thread pool costs more than it gives and fights
 # the other test workers for cores
 torch.set_num_threads(1)
 
-MAXD = 4
 # (n_ops, n_cand, n_res, seed): the boundary shapes of the reference's
 # kernel tests, and its three multi-block rows (block_rows second)
 BOUNDARY = [(1, 1, 1, 0), (7, 3, 4, 1), (8, 2, 8, 2), (9, 5, 3, 3),
             (19, 4, 6, 4)]
 MULTI_BLOCK = [(64, 16), (64, 64), (128, 32)]
-
-
-def random_bucket(n_ops, n_cand, n_res, seed):
-    """A valid padded scan bucket: deps point strictly earlier or -1."""
-    rng = np.random.default_rng(seed)
-    res = rng.integers(0, n_res, (n_cand, n_ops), dtype=np.int32)
-    dur = rng.uniform(0.01, 1.0, (n_cand, n_ops))
-    lag = rng.uniform(0.0, 0.1, (n_cand, n_ops))
-    deps = np.full((n_cand, n_ops, MAXD), -1, dtype=np.int32)
-    for i in range(1, n_ops):
-        k = int(rng.integers(0, MAXD + 1))
-        if k:
-            deps[:, i, :k] = rng.integers(0, i, (n_cand, k))
-    return res, dur, lag, deps
 
 
 def torch_ref(arrays, n_res):
@@ -305,3 +292,158 @@ def test_entry_points_raise_without_a_card():
     rep = T.Predictor(T.PAPER_RAMDISK, device="cpu").predict(wf, cfg,
                                                              backend="scan")
     assert rep.makespan > 0
+
+
+# ---------------- the kernel's tile schedule, modelled on the CPU -------------------
+#
+# The CUDA kernel walks each candidate's chain in one thread while other
+# warps stage the next tile and resolve its dependencies ahead of the
+# chain (see the head note of csrc/sweep_scan.cu). The model below runs
+# that schedule in Python: the stagers of tile k + 1 may read only end
+# values the chain finished before tile k began, everything else is read
+# by the chain from a window of the last two tiles, except what it owes
+# to the row just before (a dep on that row, or that row's resource),
+# which the chain forwards from registers. The chain issues a row's loads
+# a step ahead, before the row before stores its fin and end, as the
+# kernel does. End values the chain has not written yet are NaN, the
+# max propagates NaN, and in the device-memory regime the window is a
+# ring of two tiles, so a read outside what the kernel may read shows up
+# in the result.
+
+def nmax(*vals):
+    """max that propagates NaN (Python's max may drop it)."""
+    return float(np.max(vals))
+
+
+def tile_schedule_scan(res, dur, lag, deps, n_res, tile, ring):
+    """Returns (makespan, end, counts): counts of the deps resolved by the
+    stagers, read by the chain from the window, forwarded from the row
+    before, and reading 0.0, and of the rows whose resource the chain
+    forwards from the row before."""
+    C, N = res.shape
+    mk = np.zeros(C)
+    end = np.zeros((C, N))
+    counts = {"stager": 0, "window": 0, "forward": 0, "zero": 0,
+              "same_resource": 0}
+    n_tiles = -(-N // tile)
+    for c in range(C):
+        final = np.full(N, np.nan)              # end values the chain wrote
+        win = np.full(2 * tile if ring else N, np.nan)
+        avail = np.zeros(n_res)
+        walked = 0
+
+        def stage(k):
+            base, lo = k * tile, k * tile - tile
+            assert walked >= max(lo, 0)        # the EMPTY barrier's promise
+            rows = []
+            for i in range(base, min(base + tile, N)):
+                pre, slots, fwd = 0.0, [], False
+                for d in deps[c, i]:
+                    if d < 0 or d >= i:
+                        counts["zero"] += 1
+                    elif d == i - 1:
+                        counts["forward"] += 1
+                        fwd = True
+                    elif d < lo:
+                        counts["stager"] += 1
+                        # the tile before the one being walked is still in
+                        # the ring; below it the stagers copied ends out
+                        if ring and d >= lo - tile:
+                            assert copied[d] is None
+                            pre = nmax(pre, win[d % (2 * tile)])
+                        else:
+                            pre = nmax(pre, copied[d] if ring else final[d])
+                    else:
+                        counts["window"] += 1
+                        slots.append(d % (2 * tile) if ring else d)
+                # the row before has this row's resource: the chain loads
+                # the shared 0.0 for avail and forwards that row's fin
+                same = bool(i > 0 and res[c, i - 1] == res[c, i])
+                counts["same_resource"] += same
+                rows.append((pre, slots, fwd, same))
+            return rows
+
+        def loads(rows, k, li):
+            """What the chain loads for row li of tile k: the max of its
+            window values, its resolved `pre` and avail[res] (0.0 when it
+            is forwarded)."""
+            pre, slots, _, same = rows[li]
+            av = 0.0 if same else avail[res[c, k * tile + li]]
+            return nmax(pre, av, *(win[s] for s in slots))
+
+        copied = [None] * N                     # ends the stagers copied out
+
+        staged = stage(0)
+        fin_last = l_last = 0.0                 # the chain's registers
+        for k in range(n_tiles):
+            if k >= 2:                          # tile k - 2, out of the ring
+                for i in range((k - 2) * tile, (k - 1) * tile):
+                    copied[i] = win[i % (2 * tile)] if ring else final[i]
+            walking = staged
+            if k + 1 < n_tiles:
+                staged = stage(k + 1)           # while tile k is walked
+            x = loads(walking, k, 0)
+            for li, (_, _, fwd, same) in enumerate(walking):
+                i = k * tile + li
+                # row li + 1's loads go out before row li's stores
+                x_next = (loads(walking, k, li + 1)
+                          if li + 1 < len(walking) else None)
+                # what start owes to the row just walked: its end (a dep
+                # on it) or its fin (its resource); fin <= end as lag >= 0
+                y = fin_last + (l_last if fwd else 0.0)
+                fin = (nmax(x, y) if fwd or same else x) + dur[c, i]
+                avail[res[c, i]] = fin
+                e = fin + lag[c, i]
+                win[i % (2 * tile) if ring else i] = e
+                final[i] = end[c, i] = e
+                fin_last, l_last = fin, lag[c, i]
+                x = x_next
+                walked = i + 1
+        # the kernel's makespan: a resource's fin only grows, so the max
+        # over the ops of fin is the max of the final avail
+        mk[c] = max(0.0, avail.max())
+    return mk, end, counts
+
+
+def assert_schedule_equal(arrays, n_res, tile):
+    with enable_x64():
+        mk_r, end_r = (np.asarray(v) for v in
+                       j_sweep_scan_ref(*arrays, n_resources=n_res))
+    counts = []
+    for ring in (False, True):
+        mk, end, n = tile_schedule_scan(*arrays, n_res, tile, ring)
+        np.testing.assert_array_equal(mk, mk_r)
+        np.testing.assert_array_equal(end, end_r)
+        counts.append(n)
+    assert counts[0] == counts[1]
+    return counts[0]
+
+
+@pytest.mark.parametrize("tile", [4, 8, t_kernel.TILE_ROWS])
+@pytest.mark.parametrize("n_ops,n_cand,n_res,seed",
+                         BOUNDARY + [(64, 4, 8, 64), (600, 4, 8, 600),
+                                     (1024, 3, 8, 1024)])
+def test_tile_schedule_matches_reference(n_ops, n_cand, n_res, seed, tile):
+    """The kernel's schedule (stagers resolve what is final, the chain
+    reads the two-tile window) on the boundary and multi-tile buckets, in
+    both memory regimes, `np.array_equal` to the reference."""
+    assert_schedule_equal(random_bucket(n_ops, n_cand, n_res, seed), n_res,
+                          tile)
+
+
+@pytest.mark.parametrize("n_ops,tile", [(40, 4), (100, 8), (37, 8),
+                                        (1100, t_kernel.TILE_ROWS)])
+def test_tile_schedule_on_adversarial_deps(n_ops, tile):
+    """Deps at every hand-over point of the schedule: every kind (resolved
+    by the stagers, read from the window, forwarded dep, forwarded
+    resource, 0.0) is exercised and the result is the reference's to the
+    bit."""
+    arrays = adversarial_bucket(n_ops, 3, 5, n_ops, tile)
+    counts = assert_schedule_equal(arrays, 5, tile)
+    assert all(v > 0 for v in counts.values()), counts
+    # and the plain version (what the kernel is held against on the card)
+    mk_t, end_t = torch_ref(arrays, 5)
+    with enable_x64():
+        mk_r, end_r = j_sweep_scan_ref(*arrays, n_resources=5)
+    np.testing.assert_array_equal(mk_t, np.asarray(mk_r))
+    np.testing.assert_array_equal(end_t, np.asarray(end_r))
