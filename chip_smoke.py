@@ -21,14 +21,38 @@ line:
                boundary and multi-tile shapes and rows whose deps sit at
                every hand-over point of the kernel's tile schedule, in
                the shared-memory and the device-memory regime, healthy
-               and with 1e30 durations
+               and with 1e30 durations; and with negative, -0.0,
+               infinite and NaN durations and lags (the kernel's general
+               walk), NaN where the plain version's is NaN
   main_path    the paper's Scenario I at paper scale through the normal
                entry points: BLAST with the 1710 MB database on a
                20-node cluster, a grid over partitioning x chunk size x
                stripe width swept by `explore` on a `SweepSession`, then
                the same grid crossed with a fault scenario and
-               replication; counters, one full-size row recomputed by a
-               scalar loop on the host, and a warm re-sweep
+               replication; counters (K1's launches counted in the
+               session's `CacheStats`), one full-size row recomputed by a
+               scalar loop on the host, a warm re-sweep
+  advisor_path the advisor path on the main path's warm session: sysid
+               (`identify` at probe_mb=8, file_mb=8, seed 7: seconds and
+               `params_digest`); `explore(timeline_top_k=3)` on the BLAST
+               grid, each timeline's makespan and `end` equal to the bit
+               to the scalar host loop and its critical path equal to
+               its makespan (rel 1e-9), one written as a Perfetto trace
+               under build/chip_smoke/; an `AdvisorServer` on that
+               session answering 8 tenants' concurrent requests over 2
+               questions (the BLAST grid, asked as one request per
+               app-node count since a request names one workflow; a
+               generated fan_out workflow), one sweep per distinct
+               request and the rest coalesced, answers equal to a direct
+               `explore`, repeats from the results cache with no compile
+               and no simulator call, one invalidation after the storage
+               rate doubles; one checkpoint plan; the generated grid's
+               best row and the plan's winner held to the bit against
+               K1's plain version on the card. No K1 fallback
+  fixture_sweep the three `examples/traces/` fixtures read by the port's
+               own readers, each swept over a 9-node grid on the card,
+               one full-size row of each equal to the bit to the scalar
+               host loop; fingerprints, best makespans, no K1 fallback
   exact_path   `explore` with exact verification on a small sweep, held
                against the port's `ref_sim`; `Predictor` ref vs exact
   model_kernel_check  flash_attention, ssd and moe_gmm kernels vs their
@@ -61,7 +85,8 @@ line:
                forward per shape held in situ, one K4 launch per layer
                in every prefill forward and every serve step
   {"kernels": [...]}  one entry per kernel: launches counted during its
-               path, its time at the path's largest shape beside its
+               paths (K1's by path: main_path, advisor_path,
+               fixture_sweep), its time at the path's largest shape beside its
                bound, the plain version's time beside the kernel's at a
                shape the plain version can take, and a library call's
                time where one PyTorch call computes the same function
@@ -72,12 +97,15 @@ line:
                one-candidate chain sits beside the latency of one
                dependent step through shared memory (a point of
                comparison, not a bound: the chain forwards in registers)
+               and the general walk's time at the largest shape
   <card name, power limit>   as nvidia-smi prints them
   {"ok": true, "device": {...}}   the last line
 """
 from __future__ import annotations
 
+import asyncio
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -105,6 +133,36 @@ SEED = 0
 # 8192 steps on an H100 SXM at 700 W, whatever C), so it is timed and
 # compared at the largest main-path bucket of at most this many op rows
 PLAIN_MAX_N = 1 << 17
+# values the kernel's general walk is checked on (phase kernel_check)
+SPECIAL_VALUES = (-0.5, -1e-300, -0.0, float("nan"), float("inf"),
+                  -float("inf"))
+
+# the advisor path (phase advisor_path), on the main path's warm session:
+# sysid at the reference test's probe settings; timelines for the grid's
+# three best candidates; 8 tenants asking 2 questions of one server (the
+# BLAST grid, one request per app-node count, and the generated workflow
+# examples/advisor_server.py asks about on its grid); one checkpoint plan for zamba2-2.7b's bf16 weights
+# (2.7e9 parameters) written by 8 of 9 hosts
+SYSID_PROBE_MB, SYSID_SEED = 8, 7
+ADVISOR_TIMELINES = 3
+ADVISOR_TENANTS = 8
+ADVISOR_WINDOW_S = 0.05
+GEN_SPEC = {"family": "fan_out", "depth": 2, "width": 5}
+GEN_SEED = 3
+GEN_GRID = {"n_nodes": [9], "partitions": [(2, 6), (4, 4)],
+            "chunk_sizes": [512 * 1024, 1 << 20]}
+CKPT_BYTES = 2 * 2_700_000_000
+CKPT_HOSTS = 9
+# the shipped trace fixtures (phase fixture_sweep), swept on a 9-node grid
+TRACES = ROOT / "examples" / "traces"
+FIXTURES = ("montage_small.json", "blast_small.json", "cycles_small.dax")
+FIXTURE_GRID = {"n_nodes": [9], "chunk_sizes": [256 * 1024, 1 << 20, 4 << 20],
+                "stripe_widths": (0, 2)}
+# where the phase writes its Perfetto trace (ignored by git)
+BUILD_DIR = ROOT / "build" / "chip_smoke"
+
+# DAGs the main path's session keeps (more than its two grids hold)
+MAIN_DAG_CACHE = 1024
 
 # the main path's grid: Scenario I on a 20-node cluster. If the script
 # ever nears its time limit, cut FAULT_CHUNKS_KB (drop 256 first), never
@@ -279,6 +337,18 @@ def phase_build(kernel_mods):
     return wall
 
 
+def same_values(a, b) -> bool:
+    """`torch.equal`, with NaN equal to NaN."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(a[~nan], b[~nan])
+
+
+def abs_err(a, b) -> float:
+    """Largest absolute difference where both values are finite."""
+    both = torch.isfinite(a) & torch.isfinite(b)
+    return float((a[both] - b[both]).abs().max()) if bool(both.any()) else 0.0
+
+
 def phase_kernel_check(ops_mod, kernel_mod):
     """Kernel vs plain version on the card; returns the largest absolute
     difference seen (the contract is 0.0)."""
@@ -299,10 +369,9 @@ def phase_kernel_check(ops_mod, kernel_mod):
                                              use_kernel=True,
                                              max_smem_bytes=cap)
             torch.cuda.synchronize()
-            err = max(float((mk_k - mk_p).abs().max()),
-                      float((end_k - end_p).abs().max()))
+            err = max(abs_err(mk_k, mk_p), abs_err(end_k, end_p))
             worst = max(worst, err)
-            equal = torch.equal(mk_k, mk_p) and torch.equal(end_k, end_p)
+            equal = same_values(mk_k, mk_p) and same_values(end_k, end_p)
             cases.append({"case": tag, "regime": regime, "equal": equal})
             if not equal:
                 raise AssertionError(
@@ -330,16 +399,34 @@ def phase_kernel_check(ops_mod, kernel_mod):
     dur = dur.copy()
     dur[rng.random(dur.shape) < 0.01] += 1e30     # dead-op style durations
     check("N=4096,C=64,R=128 dead-ops", (res, dur, lag, deps), 128, caps)
+    # the general walk: a value outside dur, lag >= 0 at seeded places of
+    # both, and every lag of one candidate negative
+    for value in SPECIAL_VALUES:
+        for n_ops, n_cand, n_res, seed in [(600, 4, 8, 9), ADVERSARIAL[0]]:
+            res, dur, lag, deps = adversarial_bucket(
+                n_ops, n_cand, n_res, seed, kernel_mod.TILE_ROWS)
+            rng = np.random.default_rng(seed + 2)
+            for arr in (dur, lag):
+                arr[rng.integers(0, n_cand, 8),
+                    rng.integers(0, n_ops, 8)] = value
+            lag[1] -= 0.05
+            caps = [("smem", kernel_mod.MAX_SMEM_BYTES),
+                    ("gmem",
+                     kernel_mod.load().sweep_scan_base_smem_bytes(n_res))]
+            check(f"N={n_ops},C={n_cand},R={n_res} value {value!r}",
+                  (res, dur, lag, deps), n_res, caps)
     emit({"phase": "kernel_check", "kernel": "sweep_scan",
-          "tolerance": "none (torch.equal)", "cases": len(cases),
+          "tolerance": "none (torch.equal, NaN equal to NaN)",
+          "cases": len(cases),
           "all_equal": all(c["equal"] for c in cases),
           "max_abs_err": worst, "detail": cases})
     return worst
 
 
-def host_scan_makespan(ops, st, torch_sim, ref_sim) -> float:
-    """The scan-mode makespan of one DAG by a scalar loop on the host:
-    same order, same recurrence, plain Python floats."""
+def host_scan(ops, st, torch_sim, ref_sim):
+    """The scan-mode makespan of one DAG, and its ops' completion times
+    in op order, by a scalar loop on the host: same order, same
+    recurrence, plain Python floats."""
     perm = torch_sim.scan_order(ops, st)
     n = ops.n_ops
     inv = np.empty(n, dtype=np.int64)
@@ -363,7 +450,11 @@ def host_scan_makespan(ops, st, torch_sim, ref_sim) -> float:
         end[i] = fin + lag[i]
         if fin > mk:
             mk = fin
-    return mk
+    return mk, np.asarray(end)[inv]
+
+
+def host_scan_makespan(ops, st, torch_sim, ref_sim) -> float:
+    return host_scan(ops, st, torch_sim, ref_sim)[0]
 
 
 def phase_sums(tracer):
@@ -389,9 +480,10 @@ def describe(e):
             "makespan_s": e.makespan}
 
 
-def phase_main_path(core, ops_mod):
+def phase_main_path(core):
     """Scenario I at paper scale. Returns (kernel launches, timing
-    inputs for the kernels line)."""
+    inputs for the kernels line, the warm state `phase_advisor_path`
+    reuses: its session, grid, workflow function and makespans)."""
     from repro_torch.core import ref_sim, torch_sim, workloads
     from repro_torch.core import compile as compile_mod
     from repro_torch.obs import Tracer
@@ -409,10 +501,16 @@ def phase_main_path(core, ops_mod):
         return wf_by_app[c.n_app]
 
     tracer = Tracer()
-    sess = core.SweepSession(core.InlineBackend(), tracer=tracer)
+    # a DAG cache that holds both grids (150 + 591 candidates; the
+    # default keeps 256), so the advisor path that reuses this session
+    # meets the healthy grid warm, as a long-lived server would
+    sess = core.SweepSession(
+        core.InlineBackend(), tracer=tracer,
+        compile_cache=core.CompileCache(max_entries=MAIN_DAG_CACHE))
     assert sess.device.type == "cuda"
     torch.cuda.reset_peak_memory_stats()
-    ops_mod.reset_launch_count()
+    # K1 counts its launches in the session's CacheStats: 0 just before
+    sess.stats.reset()
 
     # -- healthy grid --------------------------------------------------------
     cands = core.grid(n_nodes=[NODES], chunk_sizes=chunks,
@@ -427,8 +525,8 @@ def phase_main_path(core, ops_mod):
     assert all(np.isfinite(e.makespan) and e.makespan > 0 for e in evals)
     assert stats.kernel_buckets > 0, "no bucket took the kernel"
     assert stats.kernel_fallbacks == 0, "a scan batch fell back"
-    assert ops_mod.launch_count() == healthy["scan_buckets"], \
-        (ops_mod.launch_count(), healthy["scan_buckets"])
+    assert stats.kernel_launches == healthy["scan_buckets"], \
+        (stats.kernel_launches, healthy["scan_buckets"])
     batches = sess.engine.cached_batches()
     assert batches and all(t.is_cuda for b, _ in batches
                            for t in (b.res, b.deps, b.nbytes))
@@ -463,7 +561,6 @@ def phase_main_path(core, ops_mod):
               "plain": scan_inputs(max(
                   (bf for bf in batches if shape_of(bf)[0] <= PLAIN_MAX_N),
                   key=shape_of)[0])}
-
     # -- warm re-sweep: no DAG compiles, no new bucket callables --------------
     compiles0, misses0, rows0 = (compile_mod.compile_count(), stats.misses,
                                  stats.row_misses)
@@ -502,7 +599,7 @@ def phase_main_path(core, ops_mod):
         if c.faults is None and c.replication == 1:
             assert e.makespan == healthy_by_key[(c.n_app, c.chunk_size,
                                                  c.stripe_width)]
-    launches = ops_mod.launch_count()
+    launches = stats.kernel_launches
     # one launch per scan bucket; the warm re-sweep reran the healthy ones
     assert launches == 2 * healthy["scan_buckets"] + faulted["scan_buckets"], \
         (launches, healthy, faulted)
@@ -532,9 +629,297 @@ def phase_main_path(core, ops_mod):
           "kernel_fallbacks": stats.kernel_fallbacks,
           "kernel_launches": launches,
           "results_device": str(sess.device),
+          "dag_cache_entries": len(sess.compile_cache.cache_keys()),
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    warm = {"session": sess, "tracer": tracer, "cands": cands,
+            "workflow_for": workflow_for, "st": st,
+            "makespans": [e.makespan for e in evals]}
+    return launches, timing, warm
+
+
+def phase_advisor_path(core, warm):
+    """The advisor path on the card, on the main path's warm session:
+    sysid at the reference test's probe settings; the paper-scale BLAST
+    grid explored again with timelines for its three best candidates,
+    each held to the bit against the scalar host loop; an
+    `AdvisorServer` on that session answering 8 tenants' concurrent
+    requests over 2 questions, repeats from its results cache, and a
+    re-identified system; one checkpoint plan; the generated grid's best
+    row and the plan's winner held to the bit against K1's plain version
+    on the card. Returns the K1 launches counted in the session while it
+    ran (the plain version's runs launch nothing)."""
+    from repro_torch.checkpoint import plan_checkpoint
+    from repro_torch.core import compile as compile_mod
+    from repro_torch.core import ref_sim, sysid, torch_sim, trace
+    from repro_torch.core.emulator import EmulatorParams
+    from repro_torch.core.workloads import checkpoint_write
+    from repro_torch.obs import (metrics_snapshot, resource_names,
+                                 timeline_to_events, write_trace)
+    from repro_torch.serve import AdvisorRequest, AdvisorServer
+
+    t_phase = time.perf_counter()
+    sess, st, tracer = warm["session"], warm["st"], warm["tracer"]
+    cands, workflow_for = warm["cands"], warm["workflow_for"]
+    stats = sess.stats
+    stats.reset()                               # K1's count: 0 just before
+
+    # -- sysid: the host-side emulator probes, as the reference test runs them
+    t0 = time.perf_counter()
+    report = sysid.identify(probe_mb=SYSID_PROBE_MB, file_mb=SYSID_PROBE_MB,
+                            seed=SYSID_SEED)
+    sysid_s = time.perf_counter() - t0
+    assert report.digest == sysid.params_digest(EmulatorParams())
+    assert report.service_times.net_latency >= 1e-9
+
+    # -- timelines for the three best candidates of the paper-scale grid
+    t0 = time.perf_counter()
+    evals = core.explore(workflow_for, cands, st, verify_top_k=0,
+                         timeline_top_k=ADVISOR_TIMELINES, session=sess)
+    torch.cuda.synchronize()
+    timeline_s = time.perf_counter() - t0
+    assert [e.makespan for e in evals] == warm["makespans"]
+    timelines = []
+    for e in evals[:ADVISOR_TIMELINES]:
+        tl = e.timeline
+        assert tl is not None and tl.n_ops > 0
+        assert tl.makespan == e.makespan, (tl.makespan, e.makespan)
+        t1 = time.perf_counter()
+        cpd = tl.critical_path_duration()
+        cp_s = time.perf_counter() - t1
+        # the reference's own bound (tests/test_obs.py): rel 1e-9
+        assert abs(cpd - tl.makespan) <= 1e-9 * tl.makespan, \
+            (cpd, tl.makespan)
+        # K1's run at C = 1 against the scalar host loop, to the bit (the
+        # plain PyTorch loop would take minutes at these sizes)
+        ops = sess.compile_cache.get(workflow_for(e.candidate),
+                                     e.candidate.to_config())
+        t1 = time.perf_counter()
+        host_mk, host_end = host_scan(ops, st, torch_sim, ref_sim)
+        host_s = time.perf_counter() - t1
+        assert host_mk == tl.makespan, (host_mk, tl.makespan)
+        assert np.array_equal(host_end, tl.end), "timeline end != host loop"
+        timelines.append({"candidate": describe(e), "n_ops": tl.n_ops,
+                          "makespan": tl.makespan,
+                          "critical_path_duration": cpd,
+                          "critical_path_equals_makespan": cpd == tl.makespan,
+                          "critical_path_ops": len(tl.critical_path()),
+                          "critical_path_s": cp_s,
+                          "host_loop_equal": True, "host_loop_s": host_s,
+                          "max_utilization": float(tl.utilization().max())})
+    assert all(e.timeline is None for e in evals[ADVISOR_TIMELINES:])
+    # one Perfetto trace, of the smallest of the three, under build/
+    small = min(evals[:ADVISOR_TIMELINES], key=lambda e: e.timeline.n_ops)
+    small.timeline.resource_names = tuple(
+        resource_names(small.candidate.to_config()))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    trace_path = write_trace(
+        BUILD_DIR / "advisor_timeline.json",
+        timeline_to_events(small.timeline, label="blast best candidates"),
+        metrics=metrics_snapshot(sess))
+    timeline_launches = stats.kernel_launches
+
+    # -- the server on the warm session: 8 tenants, 2 questions. BLAST
+    # splits its queries over a candidate's app nodes and a request names
+    # one workflow, as the reference's does, so the BLAST question is one
+    # request per app-node count of the grid
+    gen_wf = trace.to_workflow(trace.generate_workflow(
+        trace.GenSpec(**GEN_SPEC), seed=GEN_SEED))
+    gen_cands = core.grid(**GEN_GRID)
+    by_app = {}
+    for c in cands:
+        by_app.setdefault(c.n_app, []).append(c)
+    questions = [dict(workflow=workflow_for(group[0]), candidates=group,
+                      verify_top_k=0) for group in by_app.values()]
+    gen_qi = len(questions)
+    questions.append(dict(workflow=gen_wf, candidates=gen_cands,
+                          verify_top_k=2))
+    reqs, q_of = [], []
+    for i in range(ADVISOR_TENANTS):
+        for qi in (range(gen_qi) if i % 2 == 0 else [gen_qi]):
+            reqs.append(AdvisorRequest(client=f"tenant{i}", **questions[qi]))
+            q_of.append(qi)
+    gen_req = reqs[q_of.index(gen_qi)]
+    pred = core.Predictor(st, session=sess)
+
+    async def serve():
+        # one admission batch holds the whole burst (the default caps a
+        # batch at 64 tickets, and a ticket of a later batch would find
+        # its question answered in the results cache)
+        async with AdvisorServer.from_predictor(
+                pred, batch_window_s=ADVISOR_WINDOW_S,
+                max_batch=len(reqs)) as srv:
+            assert srv.session is sess and srv.session.device.type == "cuda"
+            n0, b0 = compile_mod.compile_count(), stats.batch_calls
+            tracer.clear()
+            t0 = time.perf_counter()
+            first = await asyncio.gather(*(srv.submit(r) for r in reqs))
+            first_s = time.perf_counter() - t0
+            burst = phase_sums(tracer)
+            compiles = compile_mod.compile_count() - n0
+            batches = stats.batch_calls - b0
+            assert srv.stats.sweeps == len(questions), srv.stats
+            assert srv.stats.coalesced == len(reqs) - len(questions), \
+                srv.stats
+            assert not any(r.cached for r in first)
+            # repeats: the results cache, no compile, no simulator call
+            n1, b1 = compile_mod.compile_count(), stats.batch_calls
+            again = await asyncio.gather(srv.submit(reqs[0]),
+                                         srv.submit(gen_req))
+            assert all(r.cached for r in again)
+            assert compile_mod.compile_count() == n1, "a cache hit compiled"
+            assert stats.batch_calls == b1, "a cache hit simulated"
+            assert srv.results.stats.hits == 2
+            # a re-identified system: storage twice as slow
+            st2 = st.replace(storage=st.storage * 2.0)
+            srv.set_service_times(st2)
+            fresh = await srv.submit(gen_req)
+            assert not fresh.cached
+            assert srv.results.stats.invalidations == 1
+            return (first, first_s, burst, compiles, batches, again, fresh,
+                    st2, dataclasses.asdict(srv.stats))
+
+    (first, first_s, burst, compiles, batches, again, fresh, st2,
+     serve_stats) = asyncio.run(serve())
+    server_launches = stats.kernel_launches - timeline_launches
+
+    # the answers against a direct explore on the same session
+    direct = [core.explore(lambda c, wf=q["workflow"]: wf, q["candidates"],
+                           st, verify_top_k=q["verify_top_k"], session=sess)
+              for q in questions]
+    want = [[e.makespan for e in d] for d in direct]
+    for i, (r, qi) in enumerate(zip(first, q_of)):
+        assert r.makespans.tolist() == want[qi], f"request {i}"
+    assert [r.makespans.tolist() for r in again] == [want[0], want[gen_qi]]
+    # the BLAST groups together are the whole grid's sweep
+    assert sorted(m for w in want[:gen_qi] for m in w) == \
+        sorted(warm["makespans"])
+    direct_fresh = core.explore(lambda c: gen_wf, gen_cands, st2,
+                                verify_top_k=2, session=sess)
+    assert fresh.makespans.tolist() == [e.makespan for e in direct_fresh]
+    assert fresh.makespans.tolist() != want[gen_qi]
+    lat = sorted(r.latency_s for r in first)
+    # the generated grid's best row: K1's scan makespan against its plain
+    # version on the same card inputs (`use_kernel=False`)
+    g_best = direct[gen_qi][0]
+    g_ops = sess.compile_cache.get(gen_wf, g_best.candidate.to_config())
+    g_plain = torch_sim.simulate(g_ops, st, device=sess.device,
+                                 use_kernel=False).makespan
+    assert g_plain == g_best.scan_makespan, (g_plain, g_best.scan_makespan)
+
+    # -- one checkpoint plan on the card
+    before_plan = stats.kernel_launches
+    t0 = time.perf_counter()
+    plan = plan_checkpoint(CKPT_BYTES, CKPT_HOSTS, st, session=sess)
+    plan_s = time.perf_counter() - t0
+    assert plan.predicted_write_s > 0 and plan.predicted_restore_s > 0
+    assert stats.kernel_launches > before_plan, "the plan took no kernel"
+    assert stats.kernel_fallbacks == 0, "an advisor-path bucket fell back"
+    launches = stats.kernel_launches
+    # the winner's scan makespan against K1's plain version on the card
+    n_writers = CKPT_HOSTS - 1
+    w_ops = sess.compile_cache.get(
+        checkpoint_write(n_writers, max(CKPT_BYTES // n_writers, 1),
+                         local=plan.local_placement), plan.config)
+    w_plain = torch_sim.simulate(w_ops, st, device=sess.device,
+                                 use_kernel=False).makespan
+    assert w_plain == plan.table[0]["predicted_write_s"], \
+        (w_plain, plan.table[0])
+    assert stats.kernel_launches == launches, "a plain run launched K1"
+
+    emit({"phase": "advisor_path",
+          "sysid": {"seconds": sysid_s, "params_digest": report.digest,
+                    "probe": report.probe,
+                    "n_measurements": report.n_measurements,
+                    "service_times": dataclasses.asdict(
+                        report.service_times)},
+          "timelines": {"candidates": len(cands), "seconds": timeline_s,
+                        "top_k": timelines,
+                        "trace_file": str(trace_path.relative_to(ROOT)),
+                        "trace_bytes": trace_path.stat().st_size,
+                        "trace_of_n_ops": small.timeline.n_ops},
+          "server": {"tenants": ADVISOR_TENANTS, "questions": 2,
+                     "requests": len(reqs),
+                     "distinct_requests": len(questions),
+                     "blast_candidates": len(cands),
+                     "blast_requests_per_tenant": gen_qi,
+                     "generated": {"spec": GEN_SPEC, "seed": GEN_SEED,
+                                   "fingerprint": gen_wf.fingerprint(),
+                                   "candidates": len(gen_cands)},
+                     "first_burst_s": first_s,
+                     "first_burst_split_s": {
+                         k: burst[k] for k in ("compile_s", "host_prep_s",
+                                               "device_s")},
+                     "first_burst_scan_buckets": burst["scan_buckets"],
+                     "latency_s_p50": lat[len(lat) // 2],
+                     "latency_s_max": lat[-1],
+                     "group_sizes": sorted({r.group_size for r in first}),
+                     "compile_workflow_calls": compiles,
+                     "batch_calls": batches,
+                     "repeat_cached": [r.cached for r in again],
+                     "repeat_compiles": 0, "repeat_batch_calls": 0,
+                     "invalidations": 1,
+                     "generated_best_plain_equal": True,
+                     "stats": serve_stats},
+          "planner": {"total_bytes": CKPT_BYTES, "n_hosts": CKPT_HOSTS,
+                      "seconds": plan_s,
+                      "kernel_launches": launches - before_plan,
+                      "stripe_width": plan.config.stripe_width,
+                      "chunk_mb": plan.config.chunk_size / (1 << 20),
+                      "replication": plan.config.replication,
+                      "local_placement": plan.local_placement,
+                      "predicted_write_s": plan.predicted_write_s,
+                      "predicted_restore_s": plan.predicted_restore_s,
+                      "winner_scan_s": plan.table[0]["predicted_write_s"],
+                      "winner_plain_equal": True,
+                      "candidates": len(plan.table)},
+          "kernel_launches": launches,
+          "kernel_launches_timelines": timeline_launches,
+          "kernel_launches_server": server_launches,
+          "kernel_fallbacks": stats.kernel_fallbacks,
+          "seconds": time.perf_counter() - t_phase})
     sess.close()
-    return launches, timing
+    return launches
+
+
+def phase_fixture_sweep(core, torch_sim, ref_sim):
+    """The three shipped trace fixtures, read by the port's own readers,
+    each swept over a grid on the card; one full-size row of each held
+    to the bit against the scalar host loop. Returns the K1 launches."""
+    from repro_torch.core import trace
+
+    st = core.PAPER_RAMDISK
+    sess = core.SweepSession(core.InlineBackend())
+    sess.stats.reset()                          # K1's count: 0 just before
+    rows = []
+    for name in FIXTURES:
+        wf = trace.to_workflow(trace.load_trace(TRACES / name))
+        cands = core.grid(**FIXTURE_GRID)
+        t0 = time.perf_counter()
+        evals = core.explore(lambda c: wf, cands, st, verify_top_k=0,
+                             session=sess)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        assert all(np.isfinite(e.makespan) and e.makespan > 0 for e in evals)
+        ops_all = [sess.compile_cache.get(wf, c.to_config()) for c in cands]
+        big_i = int(np.argmax([o.n_ops for o in ops_all]))
+        host_mk = host_scan_makespan(ops_all[big_i], st, torch_sim, ref_sim)
+        dev_mk = next(e.makespan for e in evals if e.index == big_i)
+        assert host_mk == dev_mk, (name, host_mk, dev_mk)
+        rows.append({"fixture": name, "fingerprint": wf.fingerprint(),
+                     "tasks": len(wf.tasks), "candidates": len(cands),
+                     "seconds": secs,
+                     "best": describe(evals[0]),
+                     "full_size_row": {"n_ops": int(ops_all[big_i].n_ops),
+                                       "host_makespan": host_mk,
+                                       "device_makespan": dev_mk}})
+    stats = sess.stats
+    assert stats.kernel_fallbacks == 0, "a fixture bucket fell back"
+    assert stats.kernel_launches > 0, "no fixture bucket took the kernel"
+    emit({"phase": "fixture_sweep", "grid": FIXTURE_GRID, "fixtures": rows,
+          "kernel_launches": stats.kernel_launches,
+          "kernel_fallbacks": stats.kernel_fallbacks})
+    sess.close()
+    return stats.kernel_launches
 
 
 def phase_exact_path(core):
@@ -564,6 +949,8 @@ def phase_exact_path(core):
                              session=sess)
         assert sess.stats.exact_batch_calls == 1
         assert sess.stats.exact_sims == 3
+        assert sess.stats.kernel_fallbacks == 0
+        assert sess.stats.kernel_launches > 0
         verified = [e for e in evals if e.verified]
         assert len(verified) == 3
         rows = []
@@ -933,7 +1320,7 @@ def serve_requests(cfg, params, prompts, last_prefill):
             "results_device": str(out.device)}
 
 
-def phase_model_path(fa_ops, ssd_ops, gmm_ops, scan_ops):
+def phase_model_path(fa_ops, ssd_ops, gmm_ops):
     """zamba2-2.7b at full width and depth through the serving entry
     points. Returns (launches per kernel, timing inputs)."""
     from repro_torch import configs
@@ -961,7 +1348,7 @@ def phase_model_path(fa_ops, ssd_ops, gmm_ops, scan_ops):
     long_toks = torch.from_numpy(rng.integers(
         0, cfg.vocab, (LONG_BATCH, PREFILL_32K.seq_len))).to(dev)
 
-    reset_counts((fa_ops, ssd_ops, gmm_ops, scan_ops))
+    reset_counts((fa_ops, ssd_ops, gmm_ops))
     # -- the algorithm at full width and depth, in f32 (no TF32): kernel path
     # vs plain path on the 8 prompts, each kernel call also held in situ
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1058,7 +1445,7 @@ def phase_model_path(fa_ops, ssd_ops, gmm_ops, scan_ops):
                 "ssd": ssd_ops.launch_count()}
     assert launches == {"flash_attention": 6 * per_fwd_fa,
                         "ssd": 6 * per_fwd_ssd}, launches
-    assert scan_ops.launch_count() == 0 and gmm_ops.launch_count() == 0
+    assert gmm_ops.launch_count() == 0
     # the long prefill's first K2 and K3 calls again, inputs cast to f32,
     # at the f32 tolerances (after the counts: comparison launches); K3's
     # plain version here is the sequential recurrence (~5 s at 32768)
@@ -1158,7 +1545,7 @@ def plain_kernel_versions(fa_ops, gmm_ops):
         fa_ops.flash_attention, gmm_ops.expert_ffn = fa, gmm
 
 
-def phase_moe_path(fa_ops, ssd_ops, gmm_ops, scan_ops):
+def phase_moe_path(fa_ops, ssd_ops, gmm_ops):
     """mixtral-8x22b at full width, depth cut to MOE_LAYERS, through the
     serving entry points: a 2-layer f32 copy (kernel vs plain path, f32
     serve steps vs the f32 prefill), then the bf16 model serving 8
@@ -1183,7 +1570,7 @@ def phase_moe_path(fa_ops, ssd_ops, gmm_ops, scan_ops):
     long_toks = torch.from_numpy(rng.integers(
         0, cfg.vocab, (LONG_BATCH, PREFILL_32K.seq_len))).to(dev)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts((fa_ops, ssd_ops, gmm_ops, scan_ops))
+    reset_counts((fa_ops, ssd_ops, gmm_ops))
     L, L32 = cfg.n_layers, MOE_F32_LAYERS
 
     def counts():
@@ -1298,7 +1685,7 @@ def phase_moe_path(fa_ops, ssd_ops, gmm_ops, scan_ops):
     expect = {k: v + 2 * L for k, v in expect.items()}
     launches = counts()
     assert launches == expect, (launches, expect)
-    assert ssd_ops.launch_count() == 0 and scan_ops.launch_count() == 0
+    assert ssd_ops.launch_count() == 0
     peak = torch.cuda.max_memory_allocated()
     E = cfg.n_experts
     emit({"phase": "moe_path", "model": MOE_MODEL, "n_params": n,
@@ -1647,13 +2034,14 @@ def moe_kernel_entries(fa_ops, gmm_ops, launches, shapes, worst):
     return entry, fa_extra
 
 
-def kernels_line(ops_mod, kernel_mod, launches, timing, max_abs_err,
+def kernels_line(ops_mod, kernel_mod, launches_by_path, timing, max_abs_err,
                  model_entries):
     """Time sweep_scan on the main path's own buckets and print the
     kernels line: the kernel at the largest bucket beside its bounds,
     and kernel and plain version side by side (and compared) at the
     largest bucket the plain version can walk; then the model path's
-    kernels (`model_kernel_entries`)."""
+    kernels (`model_kernel_entries`). The timing launches pass no
+    counter (``stats``), so they are not counted in any path's launches."""
     def run(use_kernel, t):
         return ops_mod.sweep_scan(t["res"], t["dur"], t["lag"], t["deps"],
                                   n_resources=t["n_resources"],
@@ -1661,13 +2049,17 @@ def kernels_line(ops_mod, kernel_mod, launches, timing, max_abs_err,
 
     big, mid = timing["largest"], timing["plain"]
     C, N = big["res"].shape
-    before = ops_mod.launch_count()
     kernel_ms = cuda_time_ms(lambda: run(True, big), reps=3)
     # one candidate alone on the card: N dependent steps at the latency
     # of one step, the floor a sequential recurrence cannot go below
     one = {k: (v[:1].contiguous() if torch.is_tensor(v) else v)
            for k, v in big.items()}
     chain_ms = cuda_time_ms(lambda: run(True, one), reps=3)
+    # the general walk, which the kernel takes for a candidate with any
+    # negative or NaN dur or lag, at the same shape: every lag made
+    # negative (a negative net_latency's buckets)
+    neg = dict(big, lag=(big["lag"] - 1.0).contiguous())
+    general_ms = cuda_time_ms(lambda: run(True, neg), reps=3)
     # the latency of one dependent step through a shared-memory store and
     # load (the source's probe: one thread, a chain that forwards nothing
     # in registers). The kernel's chain forwards the row before in
@@ -1692,20 +2084,22 @@ def kernels_line(ops_mod, kernel_mod, launches, timing, max_abs_err,
               float((end_k - end_p).abs().max()))
     assert torch.equal(mk_k, mk_p) and torch.equal(end_k, end_p), \
         f"sweep_scan kernel != plain version on a main-path bucket: {err}"
-    assert ops_mod.launch_count() > before      # timing launches, not counted
     bytes_ms = BYTES_PER_OPROW * C * N / PEAK_BYTES_PER_S * 1e3
     flops_ms = FLOPS_PER_OPROW * C * N / PEAK_F64_FLOPS * 1e3
     emit({"kernels": [{
         "name": "sweep_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/sweep_scan/csrc/sweep_scan.cu",
         "replaces": "src/repro/kernels/sweep_scan/kernel.py:95",
-        "launches": launches, "max_abs_err": max(max_abs_err, err),
+        "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path,
+        "max_abs_err": max(max_abs_err, err),
         "shape_c_n_r": [C, N, big["n_resources"]],
         "ms": kernel_ms, "kernel_ms": kernel_ms,
         "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         "chain_ms": chain_ms, "chain_ns_per_step": chain_ms * 1e6 / N,
         "chain_bound_ns": chain_bound_ns,
+        "general_walk_ms": general_ms,
         "plain_ms": plain_ms,
         "plain_shape_c_n_r": [mid["res"].shape[0], mid["res"].shape[1],
                               mid["n_resources"]],
@@ -1719,6 +2113,7 @@ def main() -> int:
               "False); this script does not run on the CPU", file=sys.stderr)
         return 1
     from repro_torch import core, env
+    from repro_torch.core import ref_sim, torch_sim
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
@@ -1735,15 +2130,19 @@ def main() -> int:
     max_abs_err = phase_kernel_check(ops_mod, kernel_mod)
     model_worst = phase_model_kernel_check(fa_ops, ssd_ops, gmm_ops)
     # each path is driven with every launch count at 0 just before it
-    reset_counts((ops_mod, fa_ops, ssd_ops, gmm_ops))
-    launches, timing = phase_main_path(core, ops_mod)
+    # (K1 counts in its session's CacheStats, which each path resets)
+    reset_counts((fa_ops, ssd_ops, gmm_ops))
+    scan_launches = {}
+    scan_launches["main_path"], timing, warm = phase_main_path(core)
     assert (fa_ops.launch_count(), ssd_ops.launch_count(),
             gmm_ops.launch_count()) == (0, 0, 0)
+    scan_launches["advisor_path"] = phase_advisor_path(core, warm)
+    del warm
+    scan_launches["fixture_sweep"] = phase_fixture_sweep(core, torch_sim,
+                                                         ref_sim)
     phase_exact_path(core)
-    model_launches, model_shapes = phase_model_path(fa_ops, ssd_ops, gmm_ops,
-                                                    ops_mod)
-    moe_launches, moe_shapes = phase_moe_path(fa_ops, ssd_ops, gmm_ops,
-                                              ops_mod)
+    model_launches, model_shapes = phase_model_path(fa_ops, ssd_ops, gmm_ops)
+    moe_launches, moe_shapes = phase_moe_path(fa_ops, ssd_ops, gmm_ops)
     # K2 runs on both serving paths: its launches are the two counts
     by_path = {"model_path": model_launches["flash_attention"],
                "moe_path": moe_launches["flash_attention"]}
@@ -1754,7 +2153,7 @@ def main() -> int:
     gmm_entry, fa_moe = moe_kernel_entries(fa_ops, gmm_ops, moe_launches,
                                            moe_shapes, model_worst)
     model_entries[0].update(fa_moe, launches_by_path=by_path)
-    kernels_line(ops_mod, kernel_mod, launches, timing, max_abs_err,
+    kernels_line(ops_mod, kernel_mod, scan_launches, timing, max_abs_err,
                  model_entries + [gmm_entry])
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 

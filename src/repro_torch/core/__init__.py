@@ -3,6 +3,12 @@ intermediate storage systems, plus the configuration-space explorer.
 
     Costa et al., "Predicting Intermediate Storage Performance for
     Workflow Applications", 2013.
+
+Besides the predictor's main path (types -> placement -> compile ->
+torch_sim -> sweep), the package holds its inputs' front-ends: `trace`
+(WfCommons / DAX readers and the seeded generator) and `sysid`
+(`identify` against the fine-grained `emulator`, which runs on the
+discrete-event kernel in `des`).
 """
 from .compile import MicroOps, compile_workflow
 from .faults import (DEAD_TIME, FAILED_THRESHOLD, DiskDegradation,
@@ -15,6 +21,8 @@ from .sweep import (Candidate, CompileCache, Evaluation, ExecutionBackend,
                     default_compile_cache, default_engine, default_session,
                     explore, explore_many, grid, pareto_front,
                     successive_halving, with_faults)
+from .sysid import SysIdReport, identify
+from . import trace
 from .types import (GB, KB, MB, PAPER_HDD, PAPER_RAMDISK, TPU_POD_STAGING,
                     FileAttr, Placement, RunReport, ServiceTimes,
                     StorageConfig, Task, Workflow, collocated_config,
@@ -29,7 +37,7 @@ __all__ = [
     "InlineBackend", "SweepEngine", "SweepSession",
     "default_compile_cache", "default_engine", "default_session",
     "explore", "explore_many", "grid", "pareto_front",
-    "successive_halving",
+    "successive_halving", "SysIdReport", "identify", "trace",
     "GB", "KB", "MB", "PAPER_HDD", "PAPER_RAMDISK", "TPU_POD_STAGING",
     "FileAttr", "Placement", "RunReport", "ServiceTimes", "StorageConfig",
     "Task", "Workflow", "collocated_config", "partitioned_config",

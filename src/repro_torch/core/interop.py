@@ -6,8 +6,8 @@ The counterpart of a weight converter: the port never imports the
 reference, so whoever holds reference-side objects (the parity tests,
 a migration script) flattens them with `dataclasses.asdict` on *their*
 side and hands the result over here. Both packages then simulate the
-same DAG — including workflows ingested from trace files, whose parsers
-are not ported yet.
+same DAG. Trace files need no carrying over: the port reads them itself
+(`core.trace.load_trace` + `to_workflow`).
 """
 from __future__ import annotations
 

@@ -97,6 +97,8 @@ class CacheStats:
                                   # (sim_engine="auto") but ran the plain
                                   # PyTorch loop because the engine's device
                                   # is the CPU
+    kernel_launches: int = 0      # sweep_scan kernel launches (counted by
+                                  # the kernel's wrapper, ops.sweep_scan)
     worker_rows: Dict[str, int] = field(default_factory=dict)
                                   # rows simulated per worker process (padded)
 
@@ -120,11 +122,13 @@ def _make_executable(n_resources: int, exact: bool, faulted: bool = False,
     candidate batch — the CUDA kernel when ``kernel``, else the plain
     loop; element-wise equal either way."""
     def run(batch: torch_sim.OpArrays, st_vecs: torch.Tensor,
-            fbatch: Optional[torch_sim.FaultArrays] = None) -> torch.Tensor:
+            fbatch: Optional[torch_sim.FaultArrays] = None, *,
+            stats: Optional["CacheStats"] = None) -> torch.Tensor:
         assert (fbatch is not None) == faulted
         return torch_sim.simulate_arrays(batch, st_vecs,
                                          n_resources=n_resources, exact=exact,
-                                         f=fbatch, use_kernel=kernel)[0]
+                                         f=fbatch, use_kernel=kernel,
+                                         stats=stats)[0]
     return run
 
 
@@ -144,9 +148,10 @@ class SweepEngine:
     (`SIM_ENGINES`): "auto" launches the CUDA `kernels.sweep_scan`
     kernel on a CUDA engine and runs the plain PyTorch loop on a CPU
     engine (``stats.kernel_fallbacks`` counts that); "cuda" insists;
-    "torch" opts out. The two are element-wise identical, so the knob is
-    purely a throughput decision — exact mode always runs the PyTorch
-    step loop.
+    "torch" opts out. The two are element-wise identical on every input,
+    so the knob is purely a throughput decision — exact mode always runs
+    the PyTorch step loop. Kernel launches are counted in
+    ``stats.kernel_launches``.
     """
 
     def __init__(self, max_entries: int = 32, *,
@@ -299,6 +304,18 @@ class SweepEngine:
         return batch, fbatch
 
     # -- simulation -----------------------------------------------------------
+    def simulate_one(self, ops: MicroOps, st: ServiceTimes, *,
+                     exact: bool = False, timeline: bool = False):
+        """One run of one DAG on the engine's device, through the same
+        kernel dispatch and counters as a bucket (`torch_sim.simulate`;
+        ``timeline=True`` attaches the per-op `obs.timeline.Timeline`).
+        Not cached: the search layer calls it for the few best
+        candidates of a sweep."""
+        return torch_sim.simulate(ops, st, exact=exact, timeline=timeline,
+                                  device=self.device,
+                                  use_kernel=self._use_kernel(exact),
+                                  stats=self.stats)
+
     def simulate_batch(self, ops_list: Sequence[MicroOps],
                        st_list: Sequence[ServiceTimes], *,
                        exact: bool = False) -> np.ndarray:
@@ -347,8 +364,8 @@ class SweepEngine:
                                       shards=1, faulted=faulted_b):
                     fn = self._executable((n_pad, r_pad, c_pad, exact,
                                            1, faulted_b, use_kernel))
-                    res = fn(batch, st_vecs, fbatch) if faulted_b \
-                        else fn(batch, st_vecs)
+                    res = fn(batch, st_vecs, fbatch if faulted_b else None,
+                             stats=self.stats)
                     # the copy to the host waits for the device result,
                     # so the span covers real execution, not the enqueue
                     out[idxs] = res.cpu().numpy()[:len(idxs)]

@@ -31,7 +31,7 @@ from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 from ..faults import FAILED_THRESHOLD, FaultScenario
 from ..types import MB, Placement, ServiceTimes, Workflow, partitioned_config
-from .backends import SweepRun
+from .backends import SweepRun, resolve_st
 from .compilecache import CompileCache
 from .engine import SweepEngine
 from .session import SweepSession
@@ -75,9 +75,10 @@ class Evaluation:
                                   # can stay single-backend even when some
                                   # entries were exact-verified
     timeline: Optional[object] = None
-                                  # per-op schedule of this candidate's run;
-                                  # always None until obs.timeline is ported
-                                  # (explore(timeline_top_k>0) raises)
+                                  # obs.timeline.Timeline for this candidate's
+                                  # run, populated only when the caller asked
+                                  # (explore(timeline_top_k=...)) — per-op
+                                  # schedule, utilization, critical path
 
     @property
     def cost_efficiency(self) -> float:
@@ -196,6 +197,25 @@ def _verify(run: SweepRun, evals: Sequence[Evaluation]) -> None:
     _apply_exact(todo, run.simulate([e.index for e in todo], exact=True))
 
 
+def _attach_timelines(sess: SweepSession, evals: Sequence[Evaluation],
+                      wfs: Sequence[Workflow], cfgs, st, *,
+                      locality_aware: bool, top_k: int) -> None:
+    """Populate `Evaluation.timeline` for the ``top_k`` best evaluations:
+    one single-run re-simulation each with ``timeline=True``, through the
+    session's (warm) compile cache and its engine's kernel dispatch — the
+    DAGs were compiled by the sweep, so this costs top_k simulator calls,
+    zero compiles."""
+    if top_k <= 0:
+        return
+    st_val = resolve_st(st)
+    for e in evals[:top_k]:
+        ops = sess.compile_cache.get(wfs[e.index], cfgs[e.index],
+                                     locality_aware=locality_aware)
+        rep = sess.engine.simulate_one(ops, st_val, exact=e.verified,
+                                       timeline=True)
+        e.timeline = rep.timeline
+
+
 def _resolve_session(session: Optional[SweepSession], *,
                      engine: Optional[SweepEngine],
                      compile_cache: Optional[CompileCache],
@@ -232,9 +252,10 @@ def explore(workflow_for: Callable[[Candidate], Workflow],
     keep the healthy baseline in the same ranking; omit the kwarg for
     the byte-identical pre-fault behaviour.
 
-    ``timeline_top_k`` > 0 (per-op schedules attached to the best
-    evaluations) needs `obs.timeline`, which is not ported yet, and
-    raises `NotImplementedError`.
+    ``timeline_top_k`` > 0 attaches an `obs.timeline.Timeline` (per-op
+    schedule + utilization + critical path) to that many of the
+    best-ranked evaluations — one extra single-run simulation each
+    against the already-warm compile cache, on the session's device.
 
     ``session`` supplies the execution state, backend and device
     (results are bit-identical with the compile cache on or off).
@@ -245,9 +266,6 @@ def explore(workflow_for: Callable[[Candidate], Workflow],
     construct an equivalent session on the default session's shared
     state (`SweepSession.from_legacy`); prefer ``session=``.
     """
-    if timeline_top_k > 0:
-        raise NotImplementedError(
-            "timeline_top_k > 0 needs obs.timeline, which is not ported yet")
     if faults is not None:
         candidates = with_faults(candidates, faults)
     sess = _resolve_session(session, engine=engine,
@@ -262,6 +280,8 @@ def explore(workflow_for: Callable[[Candidate], Workflow],
     evals.sort(key=key)
     _verify(run, evals[:verify_top_k])
     evals.sort(key=key)
+    _attach_timelines(sess, evals, wfs, cfgs, st,
+                      locality_aware=locality_aware, top_k=timeline_top_k)
     return evals
 
 

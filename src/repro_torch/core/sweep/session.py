@@ -12,8 +12,8 @@ of process-wide singletons that callers would clobber for each other:
     backend        — `backends.ExecutionBackend`: HOW sweeps run — one
                      constructor argument instead of threaded kwargs
                      (`InlineBackend` is the one ported so far)
-    sysid          — optional object with a ``service_times`` attribute
-                     (the reference's `SysIdReport`), the session default
+    sysid          — optional `sysid.SysIdReport` (or a path to a saved
+                     one) whose service times are the session default
                      for `prepare`
 
 Two sessions never interfere: each owns its engine (hence its device and
@@ -28,10 +28,11 @@ point of the port it runs on CUDA and raises when no card is present.
 from __future__ import annotations
 
 import threading
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Union
 
 from ...env import DeviceLike
 from ...obs.trace import NULL_TRACER
+from ..sysid import SysIdReport
 from ..types import StorageConfig, Workflow
 from .backends import ExecutionBackend, InlineBackend, StLike, SweepRun
 from .compilecache import CompileCache
@@ -44,7 +45,8 @@ class SweepSession:
     ``backend`` defaults to `backends.InlineBackend`. ``engine`` /
     ``compile_cache`` default to fresh private instances (pass the
     default session's to share warmth deliberately); ``cache_dir`` is a
-    convenience for a disk-persisted `CompileCache`. ``sysid`` (any
+    convenience for a disk-persisted `CompileCache`. ``sysid`` (a
+    `SysIdReport`, a path to one saved by `SysIdReport.save`, or any
     object with a ``service_times`` attribute) supplies default service
     times for `prepare`. ``tracer`` (an `obs.trace.Tracer`) turns on
     wall-clock span recording across the pipeline — engine buckets and
@@ -58,7 +60,7 @@ class SweepSession:
                  engine: Optional[SweepEngine] = None,
                  compile_cache: Optional[CompileCache] = None,
                  cache_dir: Optional[str] = None,
-                 sysid: Optional[Any] = None,
+                 sysid: Optional[Union[SysIdReport, str, Any]] = None,
                  sim_engine: Optional[str] = None,
                  tracer=None,
                  device: DeviceLike = "cuda"):
@@ -88,6 +90,8 @@ class SweepSession:
             self.compile_cache = compile_cache
         else:
             self.compile_cache = CompileCache(path=cache_dir)
+        if isinstance(sysid, str):
+            sysid = SysIdReport.load(sysid)
         if sysid is not None and not hasattr(sysid, "service_times"):
             raise TypeError("sysid must expose a .service_times attribute")
         self.sysid = sysid

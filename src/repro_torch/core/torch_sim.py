@@ -45,6 +45,7 @@ import torch
 
 from ..env import DeviceLike, resolve_device
 from ..kernels.sweep_scan import ops as sweep_scan_ops
+from ..obs.timeline import Timeline
 from .compile import (CLS_CLIENT, CLS_MANAGER, CLS_NET_LOCAL, CLS_NET_REMOTE,
                       CLS_STORAGE, N_CLS, MicroOps)
 from .faults import DEAD_TIME
@@ -318,14 +319,16 @@ SCAN_REFINE_PASSES = 1
 
 
 def _scan_once(a: OpArrays, dur: torch.Tensor, lag: torch.Tensor,
-               n_resources: int, use_kernel: bool = True
+               n_resources: int, use_kernel: bool = True, stats=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     # the FIFO serving recurrence itself lives in kernels/sweep_scan:
     # the CUDA kernel for CUDA tensors, the plain loop for CPU tensors
-    # (or everywhere with use_kernel=False)
+    # (or everywhere with use_kernel=False); the kernel counts its
+    # launches in ``stats``
     return sweep_scan_ops.sweep_scan(
         a.res.contiguous(), dur.contiguous(), lag.contiguous(),
-        a.deps.contiguous(), n_resources=n_resources, use_kernel=use_kernel)
+        a.deps.contiguous(), n_resources=n_resources, use_kernel=use_kernel,
+        stats=stats)
 
 
 def _permute(a: OpArrays, order: torch.Tensor) -> Tuple[OpArrays, torch.Tensor]:
@@ -347,14 +350,14 @@ def _permute(a: OpArrays, order: torch.Tensor) -> Tuple[OpArrays, torch.Tensor]:
 
 
 def _sim_scan(a: OpArrays, st_vecs: torch.Tensor, n_resources: int,
-              f: Optional[FaultArrays] = None, *, use_kernel: bool = True
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              f: Optional[FaultArrays] = None, *, use_kernel: bool = True,
+              stats=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fast mode: serve each FIFO resource in scan order. The initial
     order (host-side `scan_order`) approximates arrival order; refinement
     passes re-sort by the *actual* start times of the previous pass,
     converging to a self-consistent FIFO schedule."""
     dur, lag = _durations(a, st_vecs, f)
-    makespan, end = _scan_once(a, dur, lag, n_resources, use_kernel)
+    makespan, end = _scan_once(a, dur, lag, n_resources, use_kernel, stats)
     total_inv = None
     cur = a
     for _ in range(SCAN_REFINE_PASSES - 1):
@@ -369,7 +372,8 @@ def _sim_scan(a: OpArrays, st_vecs: torch.Tensor, n_resources: int,
         # durations are per-op, so permuting them == recomputing from the
         # permuted arrays (and it keeps the fault mask aligned for free)
         dur, lag = dur.gather(1, order), lag.gather(1, order)
-        makespan, end = _scan_once(cur, dur, lag, n_resources, use_kernel)
+        makespan, end = _scan_once(cur, dur, lag, n_resources, use_kernel,
+                                   stats)
     if total_inv is not None:
         end = end.gather(1, total_inv)
     return makespan, end
@@ -415,14 +419,17 @@ def _sim_exact(a: OpArrays, st_vecs: torch.Tensor, n_resources: int,
 
 def simulate_arrays(a: OpArrays, st_vecs: torch.Tensor, *, n_resources: int,
                     exact: bool = False, f: Optional[FaultArrays] = None,
-                    use_kernel: bool = True
+                    use_kernel: bool = True, stats=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched arrays in, (makespan [C], per-op completion times incl.
     lag [C, N]) out. ``f=None`` is the healthy path and never touches
-    fault tensors. ``use_kernel`` only matters in scan mode."""
+    fault tensors. ``use_kernel`` (False: the plain loop on any device)
+    and ``stats`` (where the kernel counts its launches, the engine's
+    `CacheStats`) only matter in scan mode."""
     if exact:
         return _sim_exact(a, st_vecs, n_resources, f)
-    return _sim_scan(a, st_vecs, n_resources, f, use_kernel=use_kernel)
+    return _sim_scan(a, st_vecs, n_resources, f, use_kernel=use_kernel,
+                     stats=stats)
 
 
 def _st_tensor(vecs: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -430,14 +437,19 @@ def _st_tensor(vecs: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 def simulate(ops: MicroOps, st: ServiceTimes, *, exact: bool = False,
-             timeline: bool = False, device: DeviceLike = "cuda") -> RunReport:
+             timeline: bool = False, device: DeviceLike = "cuda",
+             use_kernel: bool = True, stats=None) -> RunReport:
     """Drop-in equivalent of `ref_sim.simulate` running on ``device``.
 
-    ``timeline=True`` (the per-op schedule attached to the report) is
-    not part of the port yet and raises `NotImplementedError`."""
-    if timeline:
-        raise NotImplementedError(
-            "timeline=True needs obs.timeline, which is not ported yet")
+    ``timeline=True`` additionally attaches an `obs.timeline.Timeline`
+    to the report: per-op start/end intervals in original op order,
+    ``end`` from the scan (the kernel's second output on a card),
+    ``dur`` and ``lag`` recomputed on the host exactly as the device
+    summed them, and ``start = end - lag - dur`` in f64 in that order.
+    Its critical path explains the makespan.
+
+    ``use_kernel`` / ``stats``: as in `simulate_arrays`
+    (`SweepEngine.simulate_one` passes its engine's)."""
     dev = resolve_device(device)
     perm = None if exact else scan_order(ops, st)
     a = OpArrays.from_micro_ops(ops, perm=perm, device=dev).batched()
@@ -445,7 +457,7 @@ def simulate(ops: MicroOps, st: ServiceTimes, *, exact: bool = False,
           if faulted(ops) else None)
     makespan, end = simulate_arrays(a, _st_tensor(st_to_vec(st)[None], dev),
                                     n_resources=ops.n_resources, exact=exact,
-                                    f=fa)
+                                    f=fa, use_kernel=use_kernel, stats=stats)
     makespan = float(makespan[0].cpu())
     end = end[0].cpu().numpy()
     if perm is not None:
@@ -457,9 +469,18 @@ def simulate(ops: MicroOps, st: ServiceTimes, *, exact: bool = False,
     for tid, t_end in per_task.items():
         s = ops.stage_of_task.get(tid, "")
         per_stage[s] = max(per_stage.get(s, 0.0), t_end)
+    tl = None
+    if timeline:
+        dur = _ref_durations(ops, st)        # fault-adjusted, host-side
+        lag = ops.nlat * st.net_latency
+        start = end - lag - dur
+        tl = Timeline(start=start, dur=dur, lag=lag, end=end,
+                      res=ops.res, cls=ops.cls, deps=ops.deps,
+                      makespan=makespan, n_resources=ops.n_resources)
     return RunReport(makespan=makespan, bytes_moved=ops.bytes_moved,
                      storage_used=ops.storage_used, per_task_end=per_task,
-                     per_stage_end=per_stage, n_events=ops.n_ops)
+                     per_stage_end=per_stage, n_events=ops.n_ops,
+                     timeline=tl)
 
 
 # --- batched configuration sweeps (beyond-paper) -----------------------------------

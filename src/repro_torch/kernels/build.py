@@ -5,7 +5,8 @@ Sources live under each kernel's ``csrc/``; nothing is compiled at
 import. The first call that needs a kernel builds its library into the
 build directory (``build/repro_torch`` at the repository root unless
 the caller names another) and later calls in the same process reuse the
-loaded handle. The file name carries a digest of the source text and
+loaded handle: `load_library` is a memoised function of (name, sources,
+flags, build directory), so the module holds no registry of its own. The file name carries a digest of the source text and
 the compiler flags, so an edited source is rebuilt rather than served
 stale, and the library is written under a temporary name and renamed
 into place so that two processes building at once never load a partial
@@ -14,12 +15,13 @@ file.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 from ..env import nvcc_path
 
@@ -30,12 +32,6 @@ NVCC_FLAGS: Tuple[str, ...] = (
 )
 
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-
-# loaded libraries by the arguments that named them: a kernel's wrapper
-# loads its library on every launch, and reading and hashing the sources
-# there again was most of a short launch's host time
-_LIBS: Dict[tuple, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
 
 
 class KernelCompileError(RuntimeError):
@@ -95,11 +91,18 @@ def load_library(name: str, sources: Sequence[Path],
     each to a file of its own, then renames it into place). Within a
     process the sources are read and hashed once: a source edited after
     its first load is rebuilt by the next process, not by this one."""
-    key = (name, tuple(str(s) for s in sources), tuple(extra_flags),
-           str(build_dir))
-    lib = _LIBS.get(key)
-    if lib is None:
-        path = build_library(name, sources, extra_flags, build_dir)
-        with _LOCK:
-            lib = _LIBS.setdefault(key, ctypes.CDLL(str(path)))
-    return lib
+    return _load(name, tuple(str(s) for s in sources), tuple(extra_flags),
+                 None if build_dir is None else str(build_dir))
+
+
+# memoised on its (hashable) arguments: a kernel's wrapper loads its
+# library on every launch, and reading and hashing the sources there
+# again was most of a short launch's host time. Two threads that miss
+# at once may both build (each into a file of its own) and load; either
+# handle serves, and dlopen hands both the same library.
+@functools.lru_cache(maxsize=None)
+def _load(name: str, sources: Tuple[str, ...], extra_flags: Tuple[str, ...],
+          build_dir: Optional[str]) -> ctypes.CDLL:
+    path = build_library(name, [Path(s) for s in sources], extra_flags,
+                         None if build_dir is None else Path(build_dir))
+    return ctypes.CDLL(str(path))

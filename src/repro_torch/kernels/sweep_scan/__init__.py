@@ -5,8 +5,9 @@ serving recurrence of `repro_torch.core.torch_sim._scan_once`. On a CUDA
 tensor it launches the hand-written Hopper kernel
 (`csrc/sweep_scan.cu`, built and bound by `kernel.py`); on a CPU tensor
 it runs the plain PyTorch version in `ref.py`. The two are element-wise
-equal (only `max` and `+` in f64, in one order).
+equal (only `max` and `+` in f64) on every input, negative and NaN
+durations and lags included. Launches are counted in the caller's
+`CacheStats` (``stats=``), never in module state.
 """
-from .ops import (cuda_supported, launch_count, reset_launch_count,  # noqa: F401
-                  sweep_scan)
+from .ops import cuda_supported, sweep_scan                          # noqa: F401
 from .ref import scan_serve, sweep_scan_ref                           # noqa: F401

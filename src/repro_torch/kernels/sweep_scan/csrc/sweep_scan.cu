@@ -86,16 +86,30 @@
 // program order (its loads and stores of shared memory are volatile, so
 // they keep that order).
 //
-// Exactness: the result is the reference's to the bit. The max over the
-// deps is taken in another grouping than the reference's left-to-right
-// order, and as a compare and a select (`dmax`) rather than fmax; values
-// dominated by another (fin <= fin + lag) are dropped. That is exact for
-// these values: regrouping a max can only change the result through -0.0
-// (max(+0, -0) may return either) or NaN, and neither arises, because
-// durations and lags are >= 0 and finite and every end value is a sum of
-// them starting from +0.0 (x + -0 = x; 1e30 dead-op durations stay
-// finite). Every + is the reference's, on the same operands. Compile with
-// -fmad=false so no later mul+add in this file can contract.
+// Exactness: the result is the reference's to the bit on every input:
+// negative values (a negative net_latency makes every lag negative),
+// infinities and NaN included. Before the chain starts, the block reads
+// its candidate's dur and lag once and picks one of two walks for the
+// whole candidate (`__syncthreads_or`: one read of 16 bytes a row, no
+// cost to a step of the chain):
+// - every dur and lag >= 0 (-0.0 and +inf pass, NaN does not): the FAST
+//   walk described above. Its maxes are a compare and a select (`dmax`)
+//   in another grouping than the reference's; it drops the row before's
+//   fin where that row's end (fin + lag) is also an operand, and it takes
+//   the makespan from the final avail[R]. That is exact here: sums of
+//   values >= 0 make no NaN, fin <= fin + lag, and a resource's fin only
+//   grows (fin >= avail[res] + dur).
+// - otherwise the GENERAL walk: the same schedule, with every max
+//   propagating NaN (`nmax`), the ready time floored at the reference's
+//   0.0, both the row before's fin and its end kept, and a running
+//   makespan in the chain. A max regrouped is then exact unless an operand
+//   is -0.0 (max(+0, -0) may return either).
+// -0.0 arises in neither walk: a sum is -0.0 only when both operands are,
+// and every fin is a max of values that are not -0.0 (the initial +0.0 of
+// avail and of the end values, the 0.0 floor, and fins and ends before)
+// plus a dur, every end a fin plus a lag. Every + is the reference's, on
+// the same operands. Compile with -fmad=false so no later mul+add in this
+// file can contract.
 
 #include <cuda_runtime.h>
 
@@ -126,9 +140,10 @@ __device__ __forceinline__ void bar_arrive(int id) {
 // stagers resolved (read through its slot); dur; lag; the address the
 // chain loads avail[res] from (the 0.0 when the row before had the same
 // resource, whose fin the chain forwards instead); and the address of
-// avail[res] it stores fin to, with two flag bits: FWD, a dep on the row
-// just before (whose end the chain forwards), and DEP, FWD or the same
-// resource as the row before (start then waits for that row).
+// avail[res] it stores fin to, with three flag bits: FWD, a dep on the
+// row just before (whose end the chain forwards); SAME, the same resource
+// as the row before (whose fin the chain forwards as avail); and DEP, FWD
+// or SAME (start then waits for that row).
 struct Row {
     int4 slot;
     double pre, dur, lag;
@@ -137,7 +152,8 @@ struct Row {
 static_assert(sizeof(Row) == 48, "rows are 16-byte aligned");
 constexpr unsigned FWD = 0x80000000u;
 constexpr unsigned DEP = 0x40000000u;
-constexpr unsigned ADDR = 0x3fffffffu;
+constexpr unsigned SAME = 0x20000000u;
+constexpr unsigned ADDR = 0x1fffffffu;
 // each buffer holds two rows past a tile, which the chain reads (and never
 // walks) when it loads two rows ahead
 constexpr int ROWS_PER_BUF = TILE_ROWS + 2;
@@ -171,13 +187,101 @@ __device__ __forceinline__ void sts(unsigned a, double v) {
     asm volatile("st.shared.f64 [%0], %1;" ::"r"(a), "d"(v));
 }
 
-// max of two values that are never NaN and never -0.0 (see the head
-// note): a compare and a select, without fmax's NaN handling
+// max of two values that are never NaN and never -0.0 (the fast walk,
+// see the head note): a compare and a select, without fmax's NaN handling
 __device__ __forceinline__ double dmax(double a, double b) { return a > b ? a : b; }
+// max that is NaN when either operand is, as the reference's maximum is
+// (the general walk, and the stagers' resolved deps in both walks)
+__device__ __forceinline__ double nmax(double a, double b) {
+    return (a > b || a != a) ? a : b;
+}
 
 template <bool END_IN_SMEM>
 __device__ __forceinline__ int widx(int i) {
     return END_IN_SMEM ? i : (i & (WINDOW - 1));
+}
+
+// The chain (warp 0; lane 0 walks, the warp takes part in the barriers).
+// GENERAL picks the walk (see the head note); the general walk writes the
+// makespan itself.
+template <bool END_IN_SMEM, bool GENERAL>
+__device__ __forceinline__ void walk(const Smem& sm, int N, int n_tiles,
+                                     double* __restrict__ makespan) {
+    const int lane = threadIdx.x;
+    // the last row walked: its fin and lag; the running makespan (general)
+    double fin_last = 0.0, l_last = 0.0, mk = 0.0;
+    const unsigned w0 = smem_addr(sm.W);
+    for (int k = 0; k < n_tiles; ++k) {
+        const int b = k & 1;
+        bar_sync(BAR_FULL + b);
+        if (lane == 0) {
+            const int base = k * TILE_ROWS;
+            const int nb = min(TILE_ROWS, N - base);
+            const Row* rw = sm.rows + b * ROWS_PER_BUF;
+            // row 0's operands and window values (every row a window slot
+            // names was stored before this tile's barrier), row 1's operands
+            double d = rw[0].dur, l = rw[0].lag;
+            unsigned as = rw[0].astore;
+            double e0, e1, e2, e3;
+            {
+                const int4 w = rw[0].slot;
+                e0 = lds(w.x), e1 = lds(w.y), e2 = lds(w.z), e3 = lds(w.w);
+            }
+            double av = lds(rw[0].aload);
+            int4 w1 = rw[1].slot;
+            double d1 = rw[1].dur, l1 = rw[1].lag;
+            unsigned al1 = rw[1].aload, as1 = rw[1].astore;
+#pragma unroll 2
+            for (int li = 0; li < nb; ++li) {
+                // row li + 2's staged operands, and row li + 1's window
+                // values and avail, whose addresses arrived a step ago.
+                // No slot names the row just before, and no avail load
+                // its resource (both are forwarded in registers), so
+                // every value loaded here was stored by an earlier step.
+                const Row& r2 = rw[li + 2];
+                const int4 w2 = r2.slot;
+                const double d2 = r2.dur, l2 = r2.lag;
+                const unsigned al2 = r2.aload, as2 = r2.astore;
+                const double f0 = lds(w1.x), f1 = lds(w1.y), f2 = lds(w1.z),
+                             f3 = lds(w1.w);
+                const double av1 = lds(al1);
+                double fin;
+                if constexpr (GENERAL) {
+                    // row li as the reference takes it: x, the ready time
+                    // floored at 0.0 and avail when no row before forwards
+                    // it; y, the row before's end (a dep on it), its fin
+                    // (its resource), or the max of both
+                    const double x = nmax(nmax(nmax(e0, e1), nmax(e2, e3)),
+                                          nmax(av, 0.0));
+                    const double end_last = fin_last + l_last;
+                    const double y = (as & FWD)
+                                         ? ((as & SAME) ? nmax(end_last, fin_last) : end_last)
+                                         : fin_last;
+                    fin = ((as & DEP) ? nmax(x, y) : x) + d;
+                    mk = nmax(mk, fin);
+                } else {
+                    // row li. x: what start does not owe to the row just
+                    // walked; y: what it does, its end (a dep on it) or its
+                    // fin (its resource), and fin <= end since lag >= 0
+                    const double x = dmax(dmax(dmax(e0, e1), dmax(e2, e3)), av);
+                    const double y = fin_last + ((as & FWD) ? l_last : 0.0);
+                    fin = ((as & DEP) ? dmax(x, y) : x) + d;
+                }
+                sts(as & ADDR, fin);
+                sts(w0 + 8u * static_cast<unsigned>(widx<END_IN_SMEM>(base + li)), fin + l);
+                fin_last = fin;
+                l_last = l;
+                d = d1, l = l1, as = as1;
+                e0 = f0, e1 = f1, e2 = f2, e3 = f3, av = av1;
+                w1 = w2;
+                d1 = d2, l1 = l2, al1 = al2, as1 = as2;
+            }
+        }
+        __syncwarp();
+        if (k + 2 < n_tiles) bar_arrive(BAR_EMPTY + b);
+    }
+    if (GENERAL && lane == 0) makespan[blockIdx.x] = mk;
+    bar_arrive(BAR_DONE);
 }
 
 template <bool END_IN_SMEM>
@@ -202,69 +306,19 @@ sweep_scan_kernel(const int* __restrict__ res, const double* __restrict__ dur,
     // the chain loads through them two rows ahead and never walks them)
     for (int i = tid; i < 2 * ROWS_PER_BUF * 3; i += THREADS)
         reinterpret_cast<int4*>(sm.rows)[i] = make_int4(0, 0, 0, 0);
-    __syncthreads();   // the one block-wide barrier: avail and the 0.0 are set
+    // which walk (see the head note): general when any dur or lag is
+    // negative or NaN. The one block-wide barrier: avail and the 0.0 are
+    // set, and every thread knows the walk.
+    bool off = false;
+#pragma unroll 8
+    for (int i = tid; i < N; i += THREADS) off |= !(__ldg(dur + i) >= 0.0) | !(__ldg(lag + i) >= 0.0);
+    const bool general = __syncthreads_or(off) != 0;
 
     const int n_tiles = (N + TILE_ROWS - 1) / TILE_ROWS;
     if (tid < 32) {
         // ---- the chain: lane 0 walks, the warp takes part in the barriers
-        const int lane = tid;
-        // the last row walked: its fin and lag
-        double fin_last = 0.0, l_last = 0.0;
-        const unsigned w0 = smem_addr(sm.W);
-        for (int k = 0; k < n_tiles; ++k) {
-            const int b = k & 1;
-            bar_sync(BAR_FULL + b);
-            if (lane == 0) {
-                const int base = k * TILE_ROWS;
-                const int nb = min(TILE_ROWS, N - base);
-                const Row* rw = sm.rows + b * ROWS_PER_BUF;
-                // row 0's operands and window values (every row a window slot
-                // names was stored before this tile's barrier), row 1's operands
-                double d = rw[0].dur, l = rw[0].lag;
-                unsigned as = rw[0].astore;
-                double e0, e1, e2, e3;
-                {
-                    const int4 w = rw[0].slot;
-                    e0 = lds(w.x), e1 = lds(w.y), e2 = lds(w.z), e3 = lds(w.w);
-                }
-                double av = lds(rw[0].aload);
-                int4 w1 = rw[1].slot;
-                double d1 = rw[1].dur, l1 = rw[1].lag;
-                unsigned al1 = rw[1].aload, as1 = rw[1].astore;
-#pragma unroll 2
-                for (int li = 0; li < nb; ++li) {
-                    // row li + 2's staged operands, and row li + 1's window
-                    // values and avail, whose addresses arrived a step ago.
-                    // No slot names the row just before, and no avail load
-                    // its resource (both are forwarded in registers), so
-                    // every value loaded here was stored by an earlier step.
-                    const Row& r2 = rw[li + 2];
-                    const int4 w2 = r2.slot;
-                    const double d2 = r2.dur, l2 = r2.lag;
-                    const unsigned al2 = r2.aload, as2 = r2.astore;
-                    const double f0 = lds(w1.x), f1 = lds(w1.y), f2 = lds(w1.z),
-                                 f3 = lds(w1.w);
-                    const double av1 = lds(al1);
-                    // row li. x: what start does not owe to the row just
-                    // walked; y: what it does, its end (a dep on it) or its
-                    // fin (its resource), and fin <= end since lag >= 0
-                    const double x = dmax(dmax(dmax(e0, e1), dmax(e2, e3)), av);
-                    const double y = fin_last + ((as & FWD) ? l_last : 0.0);
-                    const double fin = ((as & DEP) ? dmax(x, y) : x) + d;
-                    sts(as & ADDR, fin);
-                    sts(w0 + 8u * static_cast<unsigned>(widx<END_IN_SMEM>(base + li)), fin + l);
-                    fin_last = fin;
-                    l_last = l;
-                    d = d1, l = l1, as = as1;
-                    e0 = f0, e1 = f1, e2 = f2, e3 = f3, av = av1;
-                    w1 = w2;
-                    d1 = d2, l1 = l2, al1 = al2, as1 = as2;
-                }
-            }
-            __syncwarp();
-            if (k + 2 < n_tiles) bar_arrive(BAR_EMPTY + b);
-        }
-        bar_arrive(BAR_DONE);
+        if (general) walk<END_IN_SMEM, true>(sm, N, n_tiles, makespan);
+        else walk<END_IN_SMEM, false>(sm, N, n_tiles, makespan);
     } else {
         // ---- the stagers
         const int st = tid - 32;
@@ -325,7 +379,7 @@ sweep_scan_kernel(const int* __restrict__ res, const double* __restrict__ dur,
                         const double e = (END_IN_SMEM || d >= lo - TILE_ROWS)
                                              ? sm.W[widx<END_IN_SMEM>(d)]
                                              : __ldcg(end_out + d);
-                        pre = dmax(pre, e);
+                        pre = nmax(pre, e);
                     } else {                            // left to the chain
                         slot[q] = smem_addr(sm.W + widx<END_IN_SMEM>(d));
                     }
@@ -346,16 +400,18 @@ sweep_scan_kernel(const int* __restrict__ res, const double* __restrict__ dur,
                 rw.dur = duv[j];
                 rw.lag = lav[j];
                 rw.aload = same ? zero : a;
-                rw.astore = a | (fwd ? FWD : 0u) | (fwd || same ? DEP : 0u);
+                rw.astore = a | (fwd ? FWD : 0u) | (same ? SAME : 0u) |
+                            (fwd || same ? DEP : 0u);
             }
             bar_arrive(BAR_FULL + b);
         }
-        // the last two tiles, once the chain is done with them; and the
-        // makespan, max over the ops of fin: a resource's fin only grows
-        // (fin >= avail[res] + dur), so it is the max of the final avail[R]
+        // the last two tiles, once the chain is done with them; and, in
+        // the fast walk, the makespan, max over the ops of fin: a
+        // resource's fin only grows there (fin >= avail[res] + dur), so it
+        // is the max of the final avail[R]
         bar_sync(BAR_DONE);
         for (int t = max(0, n_tiles - 2); t < n_tiles; ++t) copy_out(t);
-        if (st < 32) {
+        if (!general && st < 32) {
             double mk = 0.0;
             for (int r = st; r < R; r += 32) mk = dmax(mk, sm.avail[r]);
 #pragma unroll

@@ -84,12 +84,11 @@ def sweep_scan_cuda(res: torch.Tensor, dur: torch.Tensor, lag: torch.Tensor,
     f64[C, N], deps i32[C, N, MAXD] -> (makespan f64[C], end f64[C, N]).
 
     Indices are trusted, as in the reference: ``0 <= res < n_resources``
-    and ``deps < N``. The result equals the plain version's to the bit
-    when ``dur`` and ``lag`` are finite and >= 0 (no NaN, no -0.0), as
-    the simulator's are: the kernel takes its maxes in another grouping,
-    by compare and select, and forwards the row before's fin where the
-    reference reads avail (see the head note of the source); outside
-    that domain the two may differ. ``max_smem_bytes`` caps the dynamic shared memory
+    and ``deps < N``. The result equals the plain version's to the bit on
+    every ``dur`` and ``lag``, negative, infinite and NaN values included:
+    a candidate whose values are all >= 0 takes the fast walk, any other
+    the general one, which the kernel picks itself (see the head note of
+    the source). ``max_smem_bytes`` caps the dynamic shared memory
     one block may take: while ``end[N]`` fits under it the completion
     times live in shared memory, above it in the ``end`` output row in
     device memory (lower the cap to force that regime at a small N).

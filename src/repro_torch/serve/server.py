@@ -1,0 +1,268 @@
+"""`AdvisorServer`: the long-lived advisor service (docs/serving.md).
+
+The paper's end goal is answering "which storage configuration is best
+for my workflow?" fast enough to be interactive; at fleet scale that is
+many concurrent queries against *warm* state, not one offline sweep.
+The server owns exactly one `SweepSession` — a persistent warm engine
+(bucket-callable + host-prep LRUs, device batches), the structure-keyed
+`CompileCache` (optionally disk-backed, so restarts warm-start) — and
+serves every client from it:
+
+    admission   — `submit` enqueues a `coalescer.Ticket`; the deadline
+                  clock starts here (the fixed ``item_timeout_s``
+                  semantics: queue wait counts against the budget)
+    dispatch    — one dispatcher task drains the queue in batches
+                  (`coalescer.collect_batch`), expires overdue tickets
+                  cleanly (`DeadlineExceeded`), and coalesces
+                  structurally-equal questions (`group_tickets`)
+    answer      — per distinct question: the results cache first
+                  (zero compiles, zero simulator calls on a hit), else
+                  ONE `explore` on the server session — run in a worker
+                  thread under `SweepSession.lock` so sweeps serialize
+                  against any other session user — whose answer fans
+                  out to every coalesced sibling
+
+Bit-identity contract: every response is element-wise identical to a
+direct per-request `explore()` on a fresh session (tests/test_torch_serve.py
+and chip_smoke.py's ``advisor_path`` phase counter-assert this, plus
+coalesced compiles < requests and zero compiles on results-cache hits).
+
+Where it runs: a server-built session lives on ``device`` (default
+``"cuda"``, raising when no card is present; ``device="cpu"`` runs the
+plain PyTorch path); a borrowed ``session=`` keeps its own device.
+
+`set_service_times` swaps the model seed (a re-identified system) in
+one step: the service digest changes, so every cached answer computed
+under the old seed invalidates lazily on its next lookup — the
+`SysIdReport`/`CompileCache` pattern, with no flush to forget.
+"""
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+from dataclasses import dataclass
+from typing import List, Optional, Union
+
+from ..env import DeviceLike
+from ..core.predictor import Predictor
+from ..core.sweep.search import Evaluation, explore
+from ..core.sweep.session import SweepSession
+from ..core.sysid import SysIdReport
+from ..core.types import ServiceTimes
+from .coalescer import Ticket, collect_batch, group_tickets
+from .request import (AdvisorRequest, AdvisorResponse, DeadlineExceeded,
+                      ServerClosed, service_digest)
+from .results_cache import ResultsCache
+
+# default batch-collection window: long enough that a burst of
+# concurrent clients coalesces, short enough to be invisible next to a
+# cold sweep (which is O(100ms) even fully warm)
+BATCH_WINDOW_S = 0.002
+
+
+@dataclass
+class ServeStats:
+    """Serving-side counters (the sweep-side ones live in the session's
+    `CacheStats`/`CompileCacheStats`; the results cache has its own)."""
+
+    requests: int = 0             # tickets admitted
+    responses: int = 0            # futures resolved with an answer
+    batches: int = 0              # dispatcher batches drained
+    sweeps: int = 0               # explore() executions (not cache hits)
+    coalesced: int = 0            # requests served by a sibling's sweep
+                                  # (group members beyond the first)
+    deadline_expired: int = 0     # tickets failed with DeadlineExceeded
+    errors: int = 0               # sweeps that raised (failed the group)
+    sysid_swaps: int = 0          # set_service_times calls
+
+    def reset(self) -> None:
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
+
+
+class AdvisorServer:
+    """Async advisor service over one warm `SweepSession`.
+
+    ``st`` seeds the model (or pass ``sysid=`` / a session constructed
+    with one). ``session=`` shares an existing session (not closed on
+    server close); otherwise the server builds and owns a private one
+    (``cache_dir=`` persists its DAG cache across restarts).
+    ``default_timeout_s`` is the deadline for requests that don't carry
+    their own; None means no deadline. ``device`` places a server-built
+    session (default ``"cuda"``); it must not be combined with
+    ``session=``, which brings its own.
+
+    Lifecycle: ``async with AdvisorServer(...) as srv`` (or explicit
+    `start`/`close`). `submit` is the one client entry point.
+    """
+
+    def __init__(self, st: Optional[ServiceTimes] = None, *,
+                 session: Optional[SweepSession] = None,
+                 sysid: Optional[Union[SysIdReport, str]] = None,
+                 cache_dir: Optional[str] = None,
+                 batch_window_s: float = BATCH_WINDOW_S,
+                 max_batch: int = 64,
+                 default_timeout_s: Optional[float] = None,
+                 results_entries: int = 256,
+                 device: Optional[DeviceLike] = None):
+        if session is None:
+            session = SweepSession(cache_dir=cache_dir, sysid=sysid,
+                                   device="cuda" if device is None else device)
+            self._owns_session = True
+        else:
+            if cache_dir is not None:
+                raise ValueError("pass session= or cache_dir=, not both")
+            if device is not None:
+                raise ValueError("pass session= or device=, not both")
+            self._owns_session = False
+        self.session = session
+        if st is None:
+            if session.sysid is None:
+                raise ValueError("no service times: pass st= or sysid=")
+            st = session.sysid.service_times
+        self._st = st
+        self._digest = service_digest(st)
+        self.batch_window_s = batch_window_s
+        self.max_batch = max(int(max_batch), 1)
+        self.default_timeout_s = default_timeout_s
+        self.results = ResultsCache(results_entries)
+        self.stats = ServeStats()
+        self._queue: Optional["asyncio.Queue[Ticket]"] = None
+        self._dispatcher: Optional["asyncio.Task"] = None
+        self.closed = False
+
+    @classmethod
+    def from_predictor(cls, pred: Predictor, **kw) -> "AdvisorServer":
+        """A server on a predictor's warm state: shares its session
+        (engine, DAG cache, pools) and serves its service times."""
+        kw.setdefault("st", pred.service_times)
+        return cls(session=pred.sweep_session(), **kw)
+
+    # -- model seed ------------------------------------------------------------
+    @property
+    def service_times(self) -> ServiceTimes:
+        return self._st
+
+    @property
+    def digest(self) -> str:
+        """Current service digest — the tag new cached answers carry."""
+        return self._digest
+
+    def set_service_times(self, st: ServiceTimes) -> None:
+        """Swap the model seed (a re-identified system). Cached answers
+        computed under the old seed invalidate lazily on next lookup —
+        digest mismatch, never a stale serve."""
+        self._st = st
+        self._digest = service_digest(st)
+        self.stats.sysid_swaps += 1
+
+    # -- lifecycle -------------------------------------------------------------
+    async def start(self) -> "AdvisorServer":
+        if self.closed:
+            raise ServerClosed("server is closed")
+        if self._dispatcher is None:
+            self._queue = asyncio.Queue()
+            self._dispatcher = asyncio.ensure_future(self._serve_loop())
+        return self
+
+    async def close(self) -> None:
+        """Stop dispatching, fail unserved tickets with `ServerClosed`,
+        and close the session if this server owns it. Idempotent."""
+        if self.closed:
+            return
+        self.closed = True
+        if self._dispatcher is not None:
+            self._dispatcher.cancel()
+            try:
+                await self._dispatcher
+            except asyncio.CancelledError:
+                pass
+            self._dispatcher = None
+        if self._queue is not None:
+            while not self._queue.empty():
+                t = self._queue.get_nowait()
+                if not t.future.done():
+                    t.future.set_exception(ServerClosed("server closed"))
+        if self._owns_session:
+            self.session.close()
+
+    async def __aenter__(self) -> "AdvisorServer":
+        return await self.start()
+
+    async def __aexit__(self, *exc) -> None:
+        await self.close()
+
+    # -- client entry point ----------------------------------------------------
+    async def submit(self, request: AdvisorRequest) -> AdvisorResponse:
+        """Admit one request and await its answer. Raises
+        `DeadlineExceeded` when the deadline (measured from this call)
+        expires before dispatch, `ServerClosed` on shutdown, and
+        whatever the sweep itself raised on invalid queries."""
+        if self.closed or self._queue is None:
+            raise ServerClosed("server not started (use `async with` "
+                               "or await start())")
+        timeout = request.timeout_s if request.timeout_s is not None \
+            else self.default_timeout_s
+        ticket = Ticket(request, asyncio.get_running_loop().create_future(),
+                        timeout_s=timeout)
+        self.stats.requests += 1
+        await self._queue.put(ticket)
+        return await ticket.future
+
+    # -- dispatcher ------------------------------------------------------------
+    async def _serve_loop(self) -> None:
+        assert self._queue is not None
+        while True:
+            batch = await collect_batch(self._queue,
+                                        window_s=self.batch_window_s,
+                                        max_batch=self.max_batch)
+            self.stats.batches += 1
+            await self._process(batch)
+
+    async def _process(self, batch: List[Ticket]) -> None:
+        # expire overdue tickets at dispatch: their budget (measured
+        # from submit) is already gone, so they must not occupy a sweep
+        live: List[Ticket] = []
+        for t in batch:
+            if t.expired():
+                self.stats.deadline_expired += 1
+                if not t.future.done():
+                    t.future.set_exception(
+                        DeadlineExceeded(t.waited(), t.timeout_s or 0.0))
+            else:
+                live.append(t)
+        for key, tickets in group_tickets(live).items():
+            req = tickets[0].request
+            digest = self._digest
+            evals = self.results.get(key, digest)
+            cached = evals is not None
+            if not cached:
+                try:
+                    # one sweep per distinct question, off the event
+                    # loop; the session lock serializes it against any
+                    # other thread driving the same session
+                    self.stats.sweeps += 1
+                    evals = await asyncio.to_thread(self._run_sweep, req)
+                except Exception as exc:          # fail the group cleanly
+                    self.stats.errors += 1
+                    for t in tickets:
+                        if not t.future.done():
+                            t.future.set_exception(exc)
+                    continue
+                self.results.put(key, digest, evals)
+            self.stats.coalesced += len(tickets) - 1
+            for t in tickets:
+                self.stats.responses += 1
+                if not t.future.done():
+                    t.future.set_result(AdvisorResponse(
+                        evaluations=evals, cached=cached,
+                        group_size=len(tickets), latency_s=t.waited()))
+
+    def _run_sweep(self, req: AdvisorRequest) -> List[Evaluation]:
+        wf = req.workflow
+        with self.session.lock:
+            return explore(lambda c: wf, list(req.candidates),
+                           self._st, verify_top_k=req.verify_top_k,
+                           objective=req.objective,
+                           locality_aware=req.locality_aware,
+                           session=self.session)

@@ -4,9 +4,9 @@ The same workflow and configuration, described once, go through
 `repro.core` and `repro_torch.core`: fingerprints, every compiled
 `MicroOps` array, the DES oracle's makespan and the scan-order
 permutation must be equal — healthy and under a fault scenario, with
-replication 1 and 2. Trace fixtures are parsed by the reference and
-carried over through `repro_torch.core.interop` (the port has no trace
-parsers yet). Also pinned: the port imports neither `jax` nor `repro`.
+replication 1 and 2. Trace fixtures are parsed by each package's own
+readers (`repro.core.trace`, `repro_torch.core.trace`). Also pinned: the
+port imports neither `jax` nor `repro`.
 """
 import dataclasses
 import re
@@ -58,7 +58,7 @@ def workflow_pair(name):
     if name in MAKERS:
         return MAKERS[name](JW), MAKERS[name](TW)
     jwf = to_workflow(load_trace(TRACES / name))
-    return jwf, interop.workflow_from_dict(dataclasses.asdict(jwf))
+    return jwf, T.trace.to_workflow(T.trace.load_trace(TRACES / name))
 
 
 def config_pair(scenario, replication):
@@ -187,6 +187,9 @@ def test_import_leaves_jax_and_repro_out():
             "import repro_torch.kernels.flash_attention.ops\n"
             "import repro_torch.kernels.ssd.ops\n"
             "import repro_torch.kernels.moe_gmm.ops\n"
+            "import repro_torch.core.trace, repro_torch.core.sysid\n"
+            "import repro_torch.obs, repro_torch.serve\n"
+            "import repro_torch.checkpoint\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n"
@@ -231,5 +234,12 @@ def test_all_slice_modules_exist():
                 "kernels/flash_attention/ops.py",
                 "kernels/flash_attention/csrc/flash_attention.cu",
                 "kernels/ssd/ref.py", "kernels/ssd/kernel.py",
-                "kernels/ssd/ops.py", "kernels/ssd/csrc/ssd.cu"):
+                "kernels/ssd/ops.py", "kernels/ssd/csrc/ssd.cu",
+                "core/trace/__init__.py", "core/trace/ir.py",
+                "core/trace/wfcommons.py", "core/trace/dax.py",
+                "core/trace/generate.py", "core/des.py", "core/emulator.py",
+                "core/sysid.py", "obs/timeline.py", "obs/export.py",
+                "serve/__init__.py", "serve/request.py",
+                "serve/coalescer.py", "serve/results_cache.py",
+                "serve/server.py", "checkpoint/planner.py"):
         assert (pkg / rel).is_file(), rel

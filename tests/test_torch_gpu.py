@@ -9,19 +9,23 @@ PyTorch with CUDA and nothing of the reference's stack:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerance for sweep_scan: none. The recurrence is `max` and `+` in f64
-in one order, so the kernel is `torch.equal` to its plain version, and a
-sweep on the card equals the same sweep on the CPU element for element.
+Tolerance for sweep_scan: none. The recurrence is `max` and `+` in f64,
+so the kernel is `torch.equal` to its plain version (NaN equal to NaN,
+for the inputs that make NaN), and a sweep on the card equals the same
+sweep on the CPU element for element.
 For flash_attention, ssd and moe_gmm: the reference's `_tol` (f32 1e-5,
 bf16 2e-2), both sides computing in f32 in another order (moe_gmm's bf16
 path rounds act to bf16 once); the SSD state at 1e-4 / 5e-2 as the
 reference holds its own kernel.
 """
+import numpy as np
 import pytest
 import torch
 
 import repro_torch.core as T
+from repro_torch.core import interop, torch_sim
 from repro_torch.core import workloads as TW
+from repro_torch.core.sweep.engine import CacheStats
 from repro_torch import configs as TC
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
@@ -55,12 +59,12 @@ def test_kernel_equals_plain_version_on_the_card():
                                        use_kernel=False)
         base = t_kernel.load().sweep_scan_base_smem_bytes(n_res)
         for cap in (t_kernel.MAX_SMEM_BYTES, base):
-            before = t_ops.launch_count()
+            stats = CacheStats()
             mk_k, end_k = t_ops.sweep_scan(*args, n_resources=n_res,
-                                           use_kernel=True,
+                                           use_kernel=True, stats=stats,
                                            max_smem_bytes=cap)
             torch.cuda.synchronize()
-            assert t_ops.launch_count() == before + 1
+            assert stats.kernel_launches == 1
             assert torch.equal(mk_k, mk_p) and torch.equal(end_k, end_p)
 
 
@@ -76,7 +80,6 @@ def test_sweep_on_the_card_equals_sweep_on_the_cpu():
         return TW.blast(c.n_app, n_queries=6, db_mb=8)
 
     with T.SweepSession() as gpu, T.SweepSession(device="cpu") as cpu:
-        t_ops.reset_launch_count()
         eg = T.explore(workflow_for, cands, T.PAPER_RAMDISK, verify_top_k=2,
                        session=gpu)
         ec = T.explore(workflow_for, cands, T.PAPER_RAMDISK, verify_top_k=2,
@@ -84,7 +87,8 @@ def test_sweep_on_the_card_equals_sweep_on_the_cpu():
         assert gpu.device.type == "cuda"
         assert gpu.stats.kernel_buckets > 0
         assert gpu.stats.kernel_fallbacks == 0
-        assert t_ops.launch_count() > 0
+        assert gpu.stats.kernel_launches > 0
+        assert cpu.stats.kernel_launches == 0
     assert [e.index for e in eg] == [e.index for e in ec]
     assert [e.scan_makespan for e in eg] == [e.scan_makespan for e in ec]
     assert [e.makespan for e in eg] == [e.makespan for e in ec]
@@ -108,6 +112,79 @@ def test_kernel_equals_plain_version_on_adversarial_deps():
                                            max_smem_bytes=cap)
             torch.cuda.synchronize()
             assert torch.equal(mk_k, mk_p) and torch.equal(end_k, end_p)
+
+
+def _same_values(a, b):
+    """`torch.equal`, with NaN equal to NaN."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("value", [-0.5, -1e-300, -0.0, float("nan"),
+                                   float("inf"), -float("inf")])
+def test_kernel_equals_plain_version_on_values_of_any_sign(value):
+    """The kernel's general walk: ``value`` at seeded places of dur and
+    lag of adversarial buckets, and every lag of one candidate negative,
+    in both memory regimes: equal to the plain version, NaN where it is
+    NaN."""
+    need_card()
+    for n_ops, n_cand, n_res, seed in [(600, 4, 8, 9), (1100, 3, 5, 0)]:
+        res, dur, lag, deps = adversarial_bucket(n_ops, n_cand, n_res, seed,
+                                                 t_kernel.TILE_ROWS)
+        rng = np.random.default_rng(seed + 2)
+        for arr in (dur, lag):
+            arr[rng.integers(0, n_cand, 8), rng.integers(0, n_ops, 8)] = value
+        lag[1] -= 0.05
+        args = [torch.from_numpy(a).cuda() for a in (res, dur, lag, deps)]
+        mk_p, end_p = t_ops.sweep_scan(*args, n_resources=n_res,
+                                       use_kernel=False)
+        base = t_kernel.load().sweep_scan_base_smem_bytes(n_res)
+        for cap in (t_kernel.MAX_SMEM_BYTES, base):
+            mk_k, end_k = t_ops.sweep_scan(*args, n_resources=n_res,
+                                           use_kernel=True,
+                                           max_smem_bytes=cap)
+            torch.cuda.synchronize()
+            assert _same_values(mk_k, mk_p) and _same_values(end_k, end_p)
+
+
+@pytest.mark.gpu
+def test_negative_net_latency_on_the_card_equals_the_plain_path():
+    """Service times that make negative lags or NaN durations: every scan
+    bucket launches the kernel under "auto" and "cuda" (no fallback) and
+    equals the plain path on the CPU; the two-op case whose ready time
+    falls below its resource's availability gives the reference's 2.0."""
+    need_card()
+    cands = T.grid(n_nodes=[6], chunk_sizes=[T.MB])
+    st = T.PAPER_RAMDISK.replace(net_latency=-T.PAPER_RAMDISK.net_latency)
+
+    def workflow_for(c):
+        return TW.blast(c.n_app, n_queries=6, db_mb=8)
+
+    with T.SweepSession(sim_engine="torch", device="cpu") as cpu:
+        ec = T.explore(workflow_for, cands, st, verify_top_k=0, session=cpu)
+    for knob in ("auto", "cuda"):
+        with T.SweepSession(sim_engine=knob) as gpu:
+            eg = T.explore(workflow_for, cands, st, verify_top_k=0,
+                           session=gpu)
+            assert gpu.stats.kernel_launches == gpu.stats.misses > 0
+            assert gpu.stats.kernel_fallbacks == 0
+        assert [e.makespan for e in eg] == [e.makespan for e in ec]
+    ops = T.compile_workflow(workflow_for(cands[0]), cands[0].to_config())
+    nan_st = T.PAPER_RAMDISK.replace(storage=float("nan"))
+    stats = CacheStats()
+    rep = torch_sim.simulate(ops, nan_st, stats=stats)
+    assert stats.kernel_launches == 1 and stats.kernel_fallbacks == 0
+    ref = torch_sim.simulate(ops, nan_st, device="cpu", use_kernel=False)
+    assert repr(rep.makespan) == repr(ref.makespan)
+    two = interop.micro_ops_from_arrays(
+        res=[1, 1], cls=[0, 0], nbytes=[0.0, 0.0], reqs=[0.0, 0.0],
+        extra=[1.0, 1.0], nlat=[1.0, 0.0], deps=[[-1] * 4, [0, -1, -1, -1]],
+        n_resources=2)
+    stats = CacheStats()
+    rep = torch_sim.simulate(two, T.PAPER_RAMDISK.replace(net_latency=-0.5),
+                             stats=stats)
+    assert stats.kernel_launches == 1 and rep.makespan == 2.0
 
 
 # (B, S, H, K, hd, window): tests/test_kernels.py's rows, zamba2's

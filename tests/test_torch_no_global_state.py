@@ -1,0 +1,55 @@
+"""The port held to the reference's no-global-state rule.
+
+`tools/check_no_global_state.py` (unchanged) fails on module-level
+mutable containers and on `global` statements in the sweep stack. Here
+it runs on the port's counterparts of its default roots — the sweep
+stack, the sweep-scan kernel package, `obs`, `serve` — plus the top of
+`repro_torch/kernels` (`build.py`, which every kernel launch loads its
+library through), and must exit 0: K1's launch count lives in the
+session's `CacheStats`, and loaded libraries in a memoised function.
+A copy of the kernel package with a module-level counter put back must
+fail the same check, so the check is known to bite on these roots.
+"""
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+TOOL = ROOT / "tools" / "check_no_global_state.py"
+PORT = ROOT / "src" / "repro_torch"
+ROOTS = [PORT / "core" / "sweep", PORT / "kernels" / "sweep_scan",
+         PORT / "kernels", PORT / "obs", PORT / "serve"]
+
+
+def run_tool(*roots):
+    return subprocess.run([sys.executable, str(TOOL), *map(str, roots)],
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_port_roots_hold_no_global_state():
+    for root in ROOTS:
+        assert root.is_dir() and list(root.glob("*.py")), root
+    out = run_tool(*ROOTS)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+
+
+@pytest.mark.parametrize("snippet,what", [
+    ("_launches = 0\n\ndef bump():\n    global _launches\n    _launches += 1\n",
+     "global _launches"),
+    ("import threading\n_LIBS = {}\n_LOCK = threading.Lock()\n", "_LIBS"),
+])
+def test_the_check_bites_on_a_port_root(tmp_path, snippet, what):
+    """Mutation check: the module state this port removed, put back into
+    a copy of a port root, fails the unchanged tool."""
+    copy = tmp_path / "sweep_scan"
+    shutil.copytree(PORT / "kernels" / "sweep_scan", copy,
+                    ignore=shutil.ignore_patterns("__pycache__", "csrc"))
+    ops = copy / "ops.py"
+    ops.write_text(ops.read_text() + "\n" + snippet)
+    out = run_tool(copy)
+    assert out.returncode == 1
+    assert what in out.stderr

@@ -40,7 +40,7 @@ def compiled_pair(name, spec=None, replication=1, chunk=T.MB):
     port MicroOps)."""
     if name in FIXTURES:
         jwf = to_workflow(load_trace(TRACES / name))
-        twf = interop.workflow_from_dict(dataclasses.asdict(jwf))
+        twf = T.trace.to_workflow(T.trace.load_trace(TRACES / name))
     elif name == "blast":
         jwf = JW.blast(4, n_queries=12, db_mb=32)
         twf = TW.blast(4, n_queries=12, db_mb=32)
@@ -239,7 +239,16 @@ def test_every_sweep_path_tensor_is_f64_or_index():
     assert f.res_mult.shape == (64,) and bool((n.res_mult == 1).all())
 
 
-def test_timeline_is_not_ported_yet():
-    _, to = compiled_pair("blast")
-    with pytest.raises(NotImplementedError):
-        torch_sim.simulate(to, T.PAPER_RAMDISK, timeline=True, device="cpu")
+def test_timeline_equals_reference():
+    """``timeline=True`` attaches a timeline equal to the reference's,
+    array for array (tests/test_torch_obs.py holds the rest of the
+    timeline contract); without it there is none."""
+    jo, to = compiled_pair("blast")
+    rt = torch_sim.simulate(to, T.PAPER_RAMDISK, timeline=True, device="cpu")
+    rj = jax_sim.simulate(jo, J.PAPER_RAMDISK, timeline=True)
+    assert rt.timeline is not None and rt.makespan == rj.makespan
+    for name in ("start", "dur", "lag", "end", "res", "cls", "deps"):
+        np.testing.assert_array_equal(getattr(rt.timeline, name),
+                                      getattr(rj.timeline, name))
+    assert torch_sim.simulate(to, T.PAPER_RAMDISK,
+                              device="cpu").timeline is None

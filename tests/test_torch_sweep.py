@@ -20,7 +20,7 @@ from repro.core.trace import load_trace, to_workflow
 
 import repro_torch.core as T
 from repro_torch.core import compile as t_compile
-from repro_torch.core import interop, ref_sim as t_ref
+from repro_torch.core import ref_sim as t_ref
 from repro_torch.core import workloads as TW
 from repro_torch.core.sweep import CompileCache, bucket_of
 from repro_torch.obs import Tracer
@@ -71,7 +71,7 @@ def assert_same_evaluations(ej, et):
 
 def fixture_pair(name):
     jwf = to_workflow(load_trace(TRACES / name))
-    return jwf, interop.workflow_from_dict(dataclasses.asdict(jwf))
+    return jwf, T.trace.to_workflow(T.trace.load_trace(TRACES / name))
 
 
 # ---------------- explore / explore_many / successive_halving ----------------------
@@ -299,9 +299,6 @@ def test_parts_left_for_later_slices_raise():
     wf = TW.pipeline(3)
     cands = T.grid(n_nodes=[5])
     with cpu_session() as sess:
-        with pytest.raises(NotImplementedError):
-            T.explore(lambda c: wf, cands, T.PAPER_RAMDISK, session=sess,
-                      timeline_top_k=1)
         with pytest.raises(ValueError):
             T.explore(lambda c: wf, cands, T.PAPER_RAMDISK, session=sess,
                       workers=2)

@@ -143,10 +143,11 @@ def test_cuda_entry_refuses_cpu_tensors():
 
 
 def test_cpu_tensors_never_count_as_launches():
-    t_ops.reset_launch_count()
-    t_ops.sweep_scan(*_tensors(), n_resources=4, use_kernel=True)
-    t_ops.sweep_scan(*_tensors(), n_resources=4, use_kernel=False)
-    assert t_ops.launch_count() == 0
+    stats = t_engine.CacheStats()
+    t_ops.sweep_scan(*_tensors(), n_resources=4, use_kernel=True, stats=stats)
+    t_ops.sweep_scan(*_tensors(), n_resources=4, use_kernel=False,
+                     stats=stats)
+    assert stats.kernel_launches == 0
 
 
 class _FakeCudaTensor:
@@ -171,10 +172,10 @@ def test_cuda_tensor_with_library_missing_raises(monkeypatch):
     monkeypatch.setattr(t_ops, "sweep_scan_ref",
                         lambda *a, **kw: pytest.fail("fell back to plain"))
     args = [_FakeCudaTensor(t) for t in _tensors()]
-    t_ops.reset_launch_count()
+    stats = t_engine.CacheStats()
     with pytest.raises(t_build.KernelCompileError):
-        t_ops.sweep_scan(*args, n_resources=4, use_kernel=True)
-    assert t_ops.launch_count() == 0
+        t_ops.sweep_scan(*args, n_resources=4, use_kernel=True, stats=stats)
+    assert stats.kernel_launches == 0
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -201,14 +202,18 @@ def test_load_library_builds_and_hashes_once_per_process(monkeypatch,
 
     monkeypatch.setattr(t_build, "build_library", fake_build)
     monkeypatch.setattr(t_build.ctypes, "CDLL", lambda path: object())
-    monkeypatch.setattr(t_build, "_LIBS", {})
-    a = t_build.load_library("k", [t_kernel.SOURCE], build_dir=tmp_path)
-    assert t_build.load_library("k", [t_kernel.SOURCE],
-                                build_dir=tmp_path) is a
-    assert built == [()]
-    c = t_build.load_library("k", [t_kernel.SOURCE], ("-fmad=false",),
-                             build_dir=tmp_path)
-    assert c is not a and built == [(), ("-fmad=false",)]
+    t_build._load.cache_clear()
+    try:
+        a = t_build.load_library("k", [t_kernel.SOURCE], build_dir=tmp_path)
+        assert t_build.load_library("k", [t_kernel.SOURCE],
+                                    build_dir=tmp_path) is a
+        assert built == [()]
+        c = t_build.load_library("k", [t_kernel.SOURCE], ("-fmad=false",),
+                                 build_dir=tmp_path)
+        assert c is not a and built == [(), ("-fmad=false",)]
+    finally:
+        # the memo is the loader's only state: drop the fake handles
+        t_build._load.cache_clear()
 
 
 # ---------------- engine dispatch --------------------------------------------------
@@ -271,6 +276,116 @@ def test_cuda_engine_must_take_the_kernel(monkeypatch):
     assert eng._use_kernel(exact=False) is False
 
 
+# ---------------- service times of any sign --------------------------------------
+#
+# The kernel equals its plain version on every input: negative, infinite
+# and NaN durations and lags included (it picks its own walk per
+# candidate). So every scan bucket that wants the kernel takes it,
+# whatever its service times: no domain check, no fallback. Checked on
+# the CPU with the dispatch rule forced to the card's (`cuda_supported`
+# -> True) and the wrapper replaced by a sentinel that records what each
+# bucket asked for; the kernel itself in tests/test_torch_gpu.py.
+
+def _sentinel(monkeypatch):
+    asked = []
+    real = t_ops.sweep_scan
+
+    def sweep_scan(*args, use_kernel, **kw):
+        asked.append(use_kernel)
+        return real(*args, use_kernel=use_kernel, **kw)
+
+    monkeypatch.setattr(t_ops, "cuda_supported", lambda device=None: True)
+    monkeypatch.setattr(t_ops, "sweep_scan", sweep_scan)
+    return asked
+
+
+def _two_ops_one_resource():
+    """Two ops on resource 1, the second depending on the first,
+    dur = (1, 1) (all of it `extra`); nlat = (1, 0), so net_latency -0.5
+    makes lag = (-0.5, -0.0). The reference serves them back to back:
+    makespan 2.0 (the second op's ready time 0.5 is below the resource's
+    availability 1.0)."""
+    from repro.core.compile import MicroOps as JMicroOps
+    from repro_torch.core import interop
+    kw = dict(res=[1, 1], cls=[0, 0], nbytes=[0.0, 0.0], reqs=[0.0, 0.0],
+              extra=[1.0, 1.0], nlat=[1.0, 0.0],
+              deps=[[-1] * MAXD, [0] + [-1] * (MAXD - 1)], n_resources=2)
+    ops = interop.micro_ops_from_arrays(**kw)
+    jops = JMicroOps(**{k: getattr(ops, k) for k in (
+        "res", "cls", "nbytes", "reqs", "extra", "nlat", "deps",
+        "n_resources")})
+    return ops, jops
+
+
+def test_negative_lag_reaches_the_kernel_and_equals_the_reference(
+        monkeypatch):
+    from repro.core import jax_sim
+    from repro.core.types import ServiceTimes as JST
+    from repro_torch.core import torch_sim
+    asked = _sentinel(monkeypatch)
+    ops, jops = _two_ops_one_resource()
+    for st in (T.PAPER_RAMDISK.replace(net_latency=-0.5),
+               T.PAPER_RAMDISK.replace(net_latency=float("nan")),
+               T.PAPER_RAMDISK):
+        asked.clear()
+        stats = t_engine.CacheStats()
+        rep = torch_sim.simulate(ops, st, device="cpu", stats=stats)
+        assert asked == [True]                   # the kernel was asked
+        assert stats.kernel_fallbacks == 0
+        want = jax_sim.simulate(jops, JST(**vars(st))).makespan
+        assert repr(rep.makespan) == repr(float(want))
+    neg = torch_sim.simulate(ops, T.PAPER_RAMDISK.replace(net_latency=-0.5),
+                             device="cpu")
+    assert neg.makespan == 2.0
+
+
+@pytest.mark.parametrize("bad", ["negative_net_latency", "nan_storage",
+                                 "negative_zero_lag"])
+@pytest.mark.parametrize("knob", ["auto", "cuda"])
+def test_engine_bucket_with_service_times_of_any_sign(monkeypatch, bad, knob):
+    """Through the engine: every bucket asks for the kernel under both
+    knobs, nothing falls back, and the makespans equal the reference's
+    sweep (NaN where the reference's are)."""
+    import repro.core as J
+    from repro.core import workloads as JW
+    asked = _sentinel(monkeypatch)
+    st = {"negative_net_latency": T.PAPER_RAMDISK.replace(net_latency=-1e-4),
+          "nan_storage": T.PAPER_RAMDISK.replace(storage=float("nan")),
+          "negative_zero_lag": T.PAPER_RAMDISK.replace(net_latency=-0.0)}[bad]
+    cands = T.grid(n_nodes=[6], chunk_sizes=[T.MB, 4 * T.MB])
+    wfs = [TW.blast(c.n_app, n_queries=6, db_mb=8) for c in cands]
+    cfgs = [c.to_config() for c in cands]
+    with T.SweepSession(sim_engine=knob, device="cpu") as sess:
+        got = sess.simulate_batch(wfs, cfgs, st=st)
+        n_buckets = len(sess.engine.cache_keys())
+        assert n_buckets >= 1 and asked == [True] * n_buckets
+        assert sess.stats.kernel_fallbacks == 0
+        assert sess.stats.kernel_buckets == n_buckets
+    jc = J.grid(n_nodes=[6], chunk_sizes=[J.MB, 4 * J.MB])
+    want = J.SweepSession(J.InlineBackend()).simulate_batch(
+        [JW.blast(c.n_app, n_queries=6, db_mb=8) for c in jc],
+        [c.to_config() for c in jc],
+        st=J.ServiceTimes(**vars(st)))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("value", [-0.5, -1e-300, -0.0, float("nan"),
+                                   float("inf"), -float("inf")])
+def test_plain_scan_equals_reference_kernel_on_any_value(value):
+    """The semantics the CUDA kernel is held to on the card, for values
+    no simulator run makes from sane service times: the plain version
+    equals the reference's Pallas kernel (interpret mode) and its XLA
+    oracle, with ``value`` at seeded places of dur and lag and every lag
+    of one candidate made negative."""
+    n_ops, n_cand, n_res = 48, 3, 4
+    res, dur, lag, deps = random_bucket(n_ops, n_cand, n_res, 11)
+    rng = np.random.default_rng(12)
+    for arr in (dur, lag):
+        arr[rng.integers(0, n_cand, 4), rng.integers(0, n_ops, 4)] = value
+    lag[1] -= 0.05
+    assert_all_equal((res, dur, lag, deps), n_res, block_rows=16)
+
+
 def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device: the default device works")
@@ -308,7 +423,10 @@ def test_entry_points_raise_without_a_card():
 # kernel does. End values the chain has not written yet are NaN, the
 # max propagates NaN, and in the device-memory regime the window is a
 # ring of two tiles, so a read outside what the kernel may read shows up
-# in the result.
+# in the result. Each candidate takes one of the kernel's two walks: the
+# fast one when all its dur and lag are >= 0, else the general one (the
+# 0.0 floor on avail, the row before's fin and end both kept when it is
+# a dep on the same resource, a running makespan).
 
 def nmax(*vals):
     """max that propagates NaN (Python's max may drop it)."""
@@ -327,6 +445,7 @@ def tile_schedule_scan(res, dur, lag, deps, n_res, tile, ring):
               "same_resource": 0}
     n_tiles = -(-N // tile)
     for c in range(C):
+        general = not ((dur[c] >= 0).all() and (lag[c] >= 0).all())
         final = np.full(N, np.nan)              # end values the chain wrote
         win = np.full(2 * tile if ring else N, np.nan)
         avail = np.zeros(n_res)
@@ -365,16 +484,21 @@ def tile_schedule_scan(res, dur, lag, deps, n_res, tile, ring):
 
         def loads(rows, k, li):
             """What the chain loads for row li of tile k: the max of its
-            window values, its resolved `pre` and avail[res] (0.0 when it
-            is forwarded)."""
+            window values, its resolved `pre` (and the shared 0.0) in a
+            free slot, none when all MAXD slots read the window, and
+            avail[res] (0.0 when it is forwarded), which the general walk
+            floors at 0.0."""
             pre, slots, _, same = rows[li]
             av = 0.0 if same else avail[res[c, k * tile + li]]
-            return nmax(pre, av, *(win[s] for s in slots))
+            if general:
+                av = nmax(av, 0.0)
+            free = [pre] if len(slots) < MAXD else []
+            return nmax(av, *free, *(win[s] for s in slots))
 
         copied = [None] * N                     # ends the stagers copied out
 
         staged = stage(0)
-        fin_last = l_last = 0.0                 # the chain's registers
+        fin_last = l_last = mk_run = 0.0        # the chain's registers
         for k in range(n_tiles):
             if k >= 2:                          # tile k - 2, out of the ring
                 for i in range((k - 2) * tile, (k - 1) * tile):
@@ -389,9 +513,16 @@ def tile_schedule_scan(res, dur, lag, deps, n_res, tile, ring):
                 x_next = (loads(walking, k, li + 1)
                           if li + 1 < len(walking) else None)
                 # what start owes to the row just walked: its end (a dep
-                # on it) or its fin (its resource); fin <= end as lag >= 0
-                y = fin_last + (l_last if fwd else 0.0)
+                # on it) or its fin (its resource); the fast walk keeps
+                # only the end for both, as fin <= end when lag >= 0
+                if general:
+                    y = fin_last + l_last if fwd else fin_last
+                    if fwd and same:
+                        y = nmax(y, fin_last)
+                else:
+                    y = fin_last + (l_last if fwd else 0.0)
                 fin = (nmax(x, y) if fwd or same else x) + dur[c, i]
+                mk_run = nmax(mk_run, fin)
                 avail[res[c, i]] = fin
                 e = fin + lag[c, i]
                 win[i % (2 * tile) if ring else i] = e
@@ -399,9 +530,10 @@ def tile_schedule_scan(res, dur, lag, deps, n_res, tile, ring):
                 fin_last, l_last = fin, lag[c, i]
                 x = x_next
                 walked = i + 1
-        # the kernel's makespan: a resource's fin only grows, so the max
-        # over the ops of fin is the max of the final avail
-        mk[c] = max(0.0, avail.max())
+        # the fast walk's makespan: a resource's fin only grows, so the
+        # max over the ops of fin is the max of the final avail; the
+        # general walk keeps it running
+        mk[c] = mk_run if general else max(0.0, avail.max())
     return mk, end, counts
 
 
@@ -447,3 +579,24 @@ def test_tile_schedule_on_adversarial_deps(n_ops, tile):
         mk_r, end_r = j_sweep_scan_ref(*arrays, n_resources=5)
     np.testing.assert_array_equal(mk_t, np.asarray(mk_r))
     np.testing.assert_array_equal(end_t, np.asarray(end_r))
+
+
+@pytest.mark.parametrize("value", [-0.5, -1e-300, -0.0, float("nan"),
+                                   float("inf"), -float("inf")])
+def test_tile_schedule_general_walk(value):
+    """The general walk on the schedule's hand-over points: ``value`` at
+    seeded places of dur and lag, one candidate's lags all negative, and
+    one candidate left in the fast walk's range; equal to the plain
+    version (NaN where it is NaN), in both memory regimes."""
+    n_ops, tile = 100, 8
+    res, dur, lag, deps = adversarial_bucket(n_ops, 4, 5, 3, tile)
+    rng = np.random.default_rng(4)
+    for arr in (dur, lag):
+        arr[rng.integers(0, 3, 6), rng.integers(0, n_ops, 6)] = value
+    lag[1] -= 0.05
+    arrays = (res, dur, lag, deps)
+    mk_t, end_t = torch_ref(arrays, 5)
+    for ring in (False, True):
+        mk, end, _ = tile_schedule_scan(*arrays, 5, tile, ring)
+        np.testing.assert_array_equal(mk, mk_t)
+        np.testing.assert_array_equal(end, end_t)
