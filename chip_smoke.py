@@ -10,7 +10,7 @@ passed over, nothing carries on on the CPU). Each phase prints one JSON
 line:
 
   env          what the host offers (card, capability, power limit,
-               torch / CUDA / nvcc versions)
+               torch / CUDA / nvcc versions, CPU count and affinity)
   build        seconds `nvcc` took to build each kernel library
                (sweep_scan, flash_attention, ssd, moe_gmm) from the
                sources in this checkout, one `nvcc` per source, all
@@ -32,6 +32,24 @@ line:
                replication; counters (K1's launches counted in the
                session's `CacheStats`), one full-size row recomputed by a
                scalar loop on the host, a warm re-sweep
+  backends_path the main path's BLAST grid through the other two
+               backends, held to the bit against main_path's inline
+               makespans: (a) `MultiprocBackend(W)` with W worker
+               processes on the card (W from the CPU affinity), cold:
+               fresh workers, a fresh DAG cache on an empty directory;
+               wall seconds including the fleet's spawn, each worker's
+               compile_or_load / host-prep / device seconds from the
+               absorbed spans, worker rows and compiles (summing to the
+               grid's structural classes), no fallback, no late drop,
+               K1's launches rolled up from the workers, the K1 library
+               left unbuilt by the workers; (b) the same sweep again on
+               the warm fleet: 0 worker compiles; (c) `ShardedBackend(0)`
+               on a fresh engine over the main path's DAG cache (one
+               card: no mesh, the shard slot of every key 1), then
+               `ShardedBackend([cuda:0, cuda:0], min_shard_oprows=0)`:
+               every bucket split in two on the one card, both slots
+               counted (this tests the split; it measures nothing about
+               multi-GPU speed)
   advisor_path the advisor path on the main path's warm session: sysid
                (`identify` at probe_mb=8, file_mb=8, seed 7: seconds and
                `params_digest`); `explore(timeline_top_k=3)` on the BLAST
@@ -85,8 +103,8 @@ line:
                forward per shape held in situ, one K4 launch per layer
                in every prefill forward and every serve step
   {"kernels": [...]}  one entry per kernel: launches counted during its
-               paths (K1's by path: main_path, advisor_path,
-               fixture_sweep), its time at the path's largest shape beside its
+               paths (K1's by path: main_path, backends_path,
+               advisor_path, fixture_sweep), its time at the path's largest shape beside its
                bound, the plain version's time beside the kernel's at a
                shape the plain version can take, and a library call's
                time where one PyTorch call computes the same function
@@ -108,6 +126,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import multiprocessing
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -163,6 +184,13 @@ BUILD_DIR = ROOT / "build" / "chip_smoke"
 
 # DAGs the main path's session keeps (more than its two grids hold)
 MAIN_DAG_CACHE = 1024
+# the multi-process sweep (phase backends_path): worker processes from
+# the CPUs this process may run on, half of them (the parent and the
+# card's host work keep the rest), at least 2, at most 8; a deadline per
+# work item far above an item's seconds, so a hung worker fails the
+# phase (as a fallback) instead of hanging the script
+MAX_WORKERS = 8
+ITEM_TIMEOUT_S = 600.0
 
 # the main path's grid: Scenario I on a 20-node cluster. If the script
 # ever nears its time limit, cut FAULT_CHUNKS_KB (drop 256 first), never
@@ -312,6 +340,8 @@ def alloc_peak_bytes(fn) -> int:
 
 def phase_env(env):
     info = env.probe()
+    info["cpu_count"] = os.cpu_count()
+    info["cpu_affinity"] = len(os.sched_getaffinity(0))
     emit({"phase": "env", **info})
     return info
 
@@ -633,8 +663,162 @@ def phase_main_path(core):
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
     warm = {"session": sess, "tracer": tracer, "cands": cands,
             "workflow_for": workflow_for, "st": st,
-            "makespans": [e.makespan for e in evals]}
+            "makespans": [e.makespan for e in evals],
+            "ranked": [(e.index, e.makespan) for e in evals],
+            "seconds": healthy_s, "phases": healthy}
     return launches, timing, warm
+
+
+def worker_sums(tracer):
+    """Per worker track: its items, and the seconds of its compile or
+    disk load, host prep and device spans (absorbed from the workers)."""
+    out = {}
+    for s in tracer.spans():
+        if s.track == tracer.track:
+            continue
+        w = out.setdefault(s.track, {"items": 0, "compile_or_load_s": 0.0,
+                                     "host_prep_s": 0.0, "device_s": 0.0})
+        if s.name.startswith("compile_or_load["):
+            w["items"] += 1
+            w["compile_or_load_s"] += s.dur
+        elif s.name.startswith("prep["):
+            w["host_prep_s"] += s.dur
+        elif s.name.startswith("sim["):
+            w["device_s"] += s.dur
+    return dict(sorted(out.items()))
+
+
+def phase_backends_path(core, warm):
+    """The main path's healthy BLAST grid through the multi-process and
+    the sharded backend, each held to the bit against main_path's inline
+    makespans; main_path's session is not touched (its DAG cache is
+    read by the sharded runs). Returns the K1 launches of the phase,
+    rolled up from the workers and counted in the sharded sessions."""
+    from repro_torch.kernels import build as build_mod
+    from repro_torch.kernels.sweep_scan import kernel as kernel_mod
+    from repro_torch.obs import Tracer
+
+    st, cands, workflow_for = warm["st"], warm["cands"], warm["workflow_for"]
+    want = warm["ranked"]
+    n_workers = min(MAX_WORKERS, max(2, len(os.sched_getaffinity(0)) // 2))
+    # the K1 library the workers load: built by phase_build, rebuilt by
+    # no worker (a rebuild would rename a new file into place)
+    lib = build_mod.library_path("sweep_scan", [kernel_mod.SOURCE],
+                                 kernel_mod.EXTRA_FLAGS)
+    lib_mtime = lib.stat().st_mtime_ns
+
+    def ranked(evals):
+        return [(e.index, e.makespan) for e in evals]
+
+    # -- (a) cold: fresh workers, a DAG cache on an empty directory ------------
+    # (the directory is what lets a class whose item lands on another
+    # worker in (b) load there instead of compiling again)
+    cache_dir = BUILD_DIR / "backends_dag_cache"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    cache = core.CompileCache(path=cache_dir, max_entries=MAIN_DAG_CACHE)
+    tracer = Tracer()
+    mp = core.SweepSession(core.MultiprocBackend(
+        n_workers, item_timeout_s=ITEM_TIMEOUT_S), tracer=tracer,
+        compile_cache=cache)
+    stats, cstats = mp.stats, mp.compile_stats
+    stats.reset()                               # K1's count: 0 just before
+    t0 = time.perf_counter()
+    evals = core.explore(workflow_for, cands, st, verify_top_k=0, session=mp)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    assert ranked(evals) == want, "multi-process sweep != inline sweep"
+    assert stats.mp_fallbacks == 0, "a work item fell back in-process"
+    assert stats.mp_late_drops == 0, "a worker's result came too late"
+    assert stats.kernel_fallbacks == 0, "a worker bucket fell back"
+    assert stats.kernel_launches > 0, "no worker launched K1"
+    classes = cstats.grid_classes
+    cold_compiles = dict(cstats.worker_compiles)
+    assert sum(cold_compiles.values()) == classes, (cold_compiles, classes)
+    workers = worker_sums(tracer)
+    assert 1 <= len(workers) <= n_workers
+    cold = {"seconds": cold_s, "items": stats.mp_items,
+            "grid_classes": classes, "worker_compiles": cold_compiles,
+            "worker_rows": dict(stats.worker_rows),
+            "disk_stores": cstats.disk_stores, "workers": workers,
+            "kernel_launches": stats.kernel_launches,
+            "inline_cold_seconds": warm["seconds"],
+            "inline_cold_compile_s": warm["phases"]["compile_s"]}
+
+    # -- (b) the same sweep again: warm fleet, warm worker caches --------------
+    compiles0 = sum(cstats.worker_compiles.values())
+    items0, launches0 = stats.mp_items, stats.kernel_launches
+    tracer.clear()
+    t0 = time.perf_counter()
+    evals = core.explore(workflow_for, cands, st, verify_top_k=0, session=mp)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    assert ranked(evals) == want, "warm multi-process sweep != inline sweep"
+    assert sum(cstats.worker_compiles.values()) == compiles0, \
+        "a warm worker compiled"
+    assert stats.mp_fallbacks == 0 and stats.mp_late_drops == 0
+    assert stats.kernel_fallbacks == 0
+    warm_run = {"seconds": warm_s, "items": stats.mp_items - items0,
+                "worker_compiles": 0, "disk_hits": cstats.disk_hits,
+                "workers": worker_sums(tracer),
+                "kernel_launches": stats.kernel_launches - launches0}
+    mp_launches = stats.kernel_launches
+    mp.close()
+    assert mp.live_pools() == 0
+    # the fleet's processes end with its session: none outlives the phase
+    for child in multiprocessing.active_children():
+        child.join(timeout=60)
+    assert not multiprocessing.active_children(), "a worker outlived close()"
+    shutil.rmtree(cache_dir)
+    assert lib.stat().st_mtime_ns == lib_mtime, "a worker rebuilt K1"
+
+    # -- (c) sharded: all visible cards, then two slots of the one card ---------
+    def sharded_run(backend):
+        sess = core.SweepSession(backend,
+                                 compile_cache=warm["session"].compile_cache)
+        sess.stats.reset()                      # K1's count: 0 just before
+        t0 = time.perf_counter()
+        evals = core.explore(workflow_for, cands, st, verify_top_k=0,
+                             session=sess)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        assert ranked(evals) == want, "sharded sweep != inline sweep"
+        s = sess.stats
+        assert s.kernel_fallbacks == 0 and s.kernel_launches > 0
+        keys = sess.engine.cache_keys()
+        out = {"seconds": secs, "n_shards": sess.engine.n_shards,
+               "mesh": [str(d) for d in sess.mesh or ()],
+               "key_shards": sorted({k[4] for k in keys}),
+               "sharded_batch_calls": s.sharded_batch_calls,
+               "device_rows": dict(s.device_rows),
+               "buckets": s.misses, "evictions": s.evictions,
+               "kernel_launches": s.kernel_launches}
+        sess.close()
+        return out
+
+    all_cards = sharded_run(core.ShardedBackend(0))
+    if torch.cuda.device_count() == 1:
+        # one card: no mesh, every key as the inline engine's
+        assert all_cards["n_shards"] == 1 and all_cards["key_shards"] == [1]
+        assert all_cards["sharded_batch_calls"] == 0
+        assert all_cards["kernel_launches"] == all_cards["buckets"]
+    two = [torch.device("cuda", 0)] * 2
+    slots = sharded_run(core.ShardedBackend(two, min_shard_oprows=0))
+    assert slots["n_shards"] == 2 and slots["key_shards"] == [2]
+    assert slots["sharded_batch_calls"] > 0
+    assert set(slots["device_rows"]) == {"cuda:0[0]", "cuda:0[1]"}
+    assert len(set(slots["device_rows"].values())) == 1
+    # every bucket split in two: one K1 launch per slot
+    assert slots["kernel_launches"] == 2 * slots["buckets"]
+    launches = (mp_launches + all_cards["kernel_launches"]
+                + slots["kernel_launches"])
+    emit({"phase": "backends_path", "workload": "BLAST db_mb=1710 "
+          "n_queries=100", "candidates": len(cands), "workers": n_workers,
+          "cpu_affinity": len(os.sched_getaffinity(0)),
+          "multiproc_cold": cold, "multiproc_warm": warm_run,
+          "sharded_all_cards": all_cards, "sharded_two_slots": slots,
+          "makespans_equal_inline": True, "k1_library_rebuilt": False,
+          "kernel_launches": launches})
+    return launches
 
 
 def phase_advisor_path(core, warm):
@@ -2136,6 +2320,7 @@ def main() -> int:
     scan_launches["main_path"], timing, warm = phase_main_path(core)
     assert (fa_ops.launch_count(), ssd_ops.launch_count(),
             gmm_ops.launch_count()) == (0, 0, 0)
+    scan_launches["backends_path"] = phase_backends_path(core, warm)
     scan_launches["advisor_path"] = phase_advisor_path(core, warm)
     del warm
     scan_launches["fixture_sweep"] = phase_fixture_sweep(core, torch_sim,

@@ -17,9 +17,10 @@ from .faults import (DEAD_TIME, FAILED_THRESHOLD, DiskDegradation,
 from .placement import FileLoc, Manager
 from .predictor import Predictor
 from .sweep import (Candidate, CompileCache, Evaluation, ExecutionBackend,
-                    InlineBackend, SweepEngine, SweepSession,
-                    default_compile_cache, default_engine, default_session,
-                    explore, explore_many, grid, pareto_front,
+                    InlineBackend, MultiprocBackend, MultiprocSweep,
+                    ShardedBackend, SweepEngine, SweepSession,
+                    SysIdServiceTimes, default_compile_cache, default_engine,
+                    default_session, explore, explore_many, grid, pareto_front,
                     successive_halving, with_faults)
 from .sysid import SysIdReport, identify
 from . import trace
@@ -34,7 +35,8 @@ __all__ = [
     "NodeFailure", "Straggler", "from_pod_health", "parse_faults",
     "seeded_scenario", "with_faults",
     "Candidate", "CompileCache", "Evaluation", "ExecutionBackend",
-    "InlineBackend", "SweepEngine", "SweepSession",
+    "InlineBackend", "MultiprocBackend", "MultiprocSweep", "ShardedBackend",
+    "SweepEngine", "SweepSession", "SysIdServiceTimes",
     "default_compile_cache", "default_engine", "default_session",
     "explore", "explore_many", "grid", "pareto_front",
     "successive_halving", "SysIdReport", "identify", "trace",

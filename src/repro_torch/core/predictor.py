@@ -9,13 +9,14 @@ Backends:
               sweep-scan kernel on a CUDA device
 
 Batched prediction runs through a `sweep.SweepSession`: pass one via
-``session=`` (sharing it across predictors shares DAGs and device
-batches), or let the predictor derive its own. ``device`` (default
-``"cuda"``, raising when no card is present) is where single runs
-execute and where a derived session's engine lives; an explicit
-``session=`` keeps its own device. The reference's ``devices=`` /
-``workers=`` knobs name backends the port does not have yet and raise
-`NotImplementedError`.
+``session=`` (sharing it across predictors shares DAGs, device batches
+and worker pools), or let the predictor derive its own from the legacy
+``compile_cache=``/``devices=``/``workers=`` knobs. Derived sessions
+with any of those set are *private*: two predictors with different
+``devices=`` keep independent meshes instead of re-pointing a shared
+engine. ``device`` (default ``"cuda"``, raising when no card is present)
+is where single runs execute and where a derived session's engine
+lives; an explicit ``session=`` keeps its own device.
 """
 from __future__ import annotations
 
@@ -27,8 +28,9 @@ import numpy as np
 from ..env import DeviceLike, resolve_device
 from . import ref_sim, torch_sim
 from .compile import MicroOps
-from .sweep.backends import InlineBackend
+from .sweep.backends import InlineBackend, ShardedBackend
 from .sweep.compilecache import CompileCache
+from .sweep.multiproc import MultiprocBackend
 from .sweep.session import SweepSession, default_session
 from .types import RunReport, ServiceTimes, StorageConfig, Workflow
 
@@ -40,8 +42,14 @@ class Predictor:
     # None => the session's structure-keyed DAG cache; pass
     # CompileCache(enabled=False) to force fresh compiles
     compile_cache: Optional[CompileCache] = None
-    # sharded / multi-process execution: not ported yet (raise when set)
+    # candidate-batch sharding for predict_batch (`sweep.shard.resolve_mesh`
+    # semantics: 0 = all visible devices, n = first n). Applies to this
+    # predictor's private session only — other predictors and the
+    # default session keep their own placement.
     devices: Optional[object] = None
+    # host-process fan-out for predict_batch (`sweep.multiproc`): > 1
+    # partitions the batch's structural-class groups across worker
+    # processes
     workers: Optional[int] = None
     # explicit execution state; overrides the knobs above
     session: Optional[SweepSession] = None
@@ -53,19 +61,27 @@ class Predictor:
             return self.session
         sess = getattr(self, "_derived", None)
         if sess is None:
-            if self.devices is not None or max(int(self.workers or 1), 1) > 1:
-                raise NotImplementedError(
-                    "devices= / workers= need the sharded and multi-process "
-                    "backends, which are not ported yet")
             dev = resolve_device(self.device)
-            if self.compile_cache is None and dev.type == "cuda":
+            if (self.compile_cache is None and self.devices is None
+                    and self.workers is None and dev.type == "cuda"):
                 sess = default_session()
             else:
-                # a private session on the predictor's device (and the
-                # caller's DAG cache, when one was given)
-                sess = SweepSession(InlineBackend(),
-                                    compile_cache=self.compile_cache,
-                                    device=dev)
+                n_workers = max(int(self.workers or 1), 1)
+                if n_workers > 1:
+                    backend = MultiprocBackend(n_workers, shared_pools=True)
+                elif self.devices is not None:
+                    backend = ShardedBackend(self.devices)
+                else:
+                    backend = InlineBackend()
+                # private engine on the predictor's device => private
+                # mesh: devices= must not clobber anyone else's
+                # placement. The DAG cache is placement-independent, so
+                # a CUDA predictor shares the default one for warmth
+                # unless the caller supplied their own.
+                cache = self.compile_cache
+                if cache is None and dev.type == "cuda":
+                    cache = default_session().compile_cache
+                sess = SweepSession(backend, compile_cache=cache, device=dev)
             self._derived = sess
         return sess
 
@@ -77,8 +93,9 @@ class Predictor:
     def sweep_session(self) -> SweepSession:
         """The session this predictor executes on (derived on first use
         when ``session=`` was not given). The public seam for layers
-        that build *on top of* a predictor and want to share its warm
-        engine and DAG cache."""
+        that build *on top of* a predictor —
+        `serve.AdvisorServer.from_predictor` shares its warm engine, DAG
+        cache and worker pools through this."""
         return self._session()
 
     def compile(self, wf: Workflow, cfg: StorageConfig) -> MicroOps:
@@ -99,7 +116,9 @@ class Predictor:
     def predict_batch(self, wfs: Sequence[Workflow],
                       cfgs: Sequence[StorageConfig]) -> np.ndarray:
         """One batched sweep across configurations through the
-        predictor's session (bucketed + cached)."""
+        predictor's session (bucketed + cached; sharded or fanned out
+        across host processes per the session's backend — results
+        identical either way)."""
         return self._session().simulate_batch(
             list(wfs), list(cfgs), st=self.service_times,
             locality_aware=self.locality_aware)

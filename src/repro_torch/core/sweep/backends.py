@@ -1,12 +1,13 @@
 """Pluggable execution backends: *how* a prepared sweep runs.
 
-The reference has three execution paths — in-process
-(`engine.SweepEngine`), device-sharded and multi-process. This module
-names the seam they all share; the port has the in-process path so far:
+There are three execution paths — in-process (`engine.SweepEngine`),
+device-sharded (`shard`) and multi-process (`multiproc`). This module
+names the seam they all share:
 
 * `SweepRun` — one sweep's worth of (workflow, config) pairs, simulatable
   any number of times (the scan pass, then exact-verification rounds).
-  `_InlineRun` is the in-process one.
+  `multiproc.MultiprocSweep` has this shape; `_InlineRun` gives the
+  in-process path the same one.
 * `ExecutionBackend` — a policy object that turns (session, pairs) into
   a `SweepRun`. Both are `typing.Protocol`s: structural, no inheritance
   required, so external launchers can plug in without importing
@@ -14,34 +15,23 @@ names the seam they all share; the port has the in-process path so far:
 
 Backends are stateless policy; every piece of *state* they touch —
 engine, compile cache, mesh, worker pools — belongs to the
-`session.SweepSession` handed to ``prepare``. `InlineBackend` is the
-one built-in so far; the sharded and multi-process backends of the
-reference arrive with their modules and must produce element-wise
-identical makespans, so backend choice stays purely a throughput
-decision.
-
-`StLike` / `resolve_st` live here until the multi-process module, their
-home in the reference, is ported.
+`session.SweepSession` handed to ``prepare``. The three built-ins
+(`InlineBackend`, `ShardedBackend` here, `multiproc.MultiprocBackend`)
+produce element-wise identical makespans for any sweep
+(tests/test_torch_backends.py), so backend choice is purely a
+throughput decision.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import (Any, List, Optional, Protocol, Sequence,
-                    runtime_checkable)
+from typing import List, Optional, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 
 from ...obs.trace import NULL_TRACER
-from ..types import ServiceTimes, StorageConfig, Workflow
-
-# a `ServiceTimes`, or a reference to one that ``resolve()``s to it (the
-# persisted-sysid reference of the multi-process path)
-StLike = Any
-
-
-def resolve_st(st: StLike) -> ServiceTimes:
-    """Materialize a service-times spec."""
-    return st.resolve() if hasattr(st, "resolve") else st
+from ..types import StorageConfig, Workflow
+from . import shard as _shard
+from .multiproc import StLike, resolve_st
 
 
 @runtime_checkable
@@ -80,7 +70,8 @@ class _Spec:
 
 class _InlineRun:
     """In-process `SweepRun`: DAGs through the session's compile cache,
-    simulation through the session's engine."""
+    simulation through the session's engine (which may be meshed — the
+    sharded path is the same run on a mesh-pointed engine)."""
 
     def __init__(self, engine, cache, wfs: Sequence[Workflow],
                  cfgs: Sequence[StorageConfig], *, st: StLike,
@@ -121,10 +112,37 @@ class _InlineRun:
 
 class InlineBackend:
     """Single-host, in-process execution on the session's engine and
-    its device."""
+    its device, leaving the engine's current mesh untouched."""
 
     def prepare(self, session, wfs, cfgs, *, st, locality_aware=True,
                 compile_workers=None) -> SweepRun:
+        return _InlineRun(session.engine, session.compile_cache, wfs, cfgs,
+                          st=st, locality_aware=locality_aware,
+                          compile_workers=compile_workers,
+                          tracer=session.tracer)
+
+
+class ShardedBackend:
+    """In-process execution with the candidate batch axis split over a
+    device mesh (`shard.resolve_mesh` semantics: 0 = all visible devices
+    of the engine's type, n = first n, or an explicit device sequence).
+    Points the session's engine at the mesh on ``prepare``; results stay
+    element-wise identical to `InlineBackend` (tests/test_torch_shard.py,
+    tests/test_torch_backends.py).
+    """
+
+    def __init__(self, devices: _shard.DevicesLike = 0, *,
+                 min_shard_oprows: Optional[int] = None):
+        self.devices = devices
+        # None = keep the engine's adaptive-placement threshold
+        self.min_shard_oprows = min_shard_oprows
+
+    def prepare(self, session, wfs, cfgs, *, st, locality_aware=True,
+                compile_workers=None) -> SweepRun:
+        session.engine.set_mesh(
+            _shard.resolve_mesh(self.devices, session.engine.device))
+        if self.min_shard_oprows is not None:
+            session.engine.min_shard_oprows = self.min_shard_oprows
         return _InlineRun(session.engine, session.compile_cache, wfs, cfgs,
                           st=st, locality_aware=locality_aware,
                           compile_workers=compile_workers,

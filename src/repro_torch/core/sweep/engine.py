@@ -13,9 +13,18 @@ the key names the kernel specialisation a bucket runs through.
 
 The engine executes; it does not own policy or lifecycle. *What* runs
 where is decided one layer up by an `ExecutionBackend`
-(`sweep.backends`), and *state* — which engine, which compile cache —
-is owned by a `SweepSession` (`sweep.session`). Device sharding of the
-candidate axis is not ported yet: ``n_shards`` is always 1.
+(`sweep.backends`: inline / device-sharded / multi-process), and
+*state* — which engine, which compile cache, which mesh, which worker
+pools — is owned by a `SweepSession` (`sweep.session`). ``set_mesh``
+points the engine at an already-resolved device mesh (the
+`ShardedBackend` resolves it); bucket batches are then split over the
+mesh via `shard.sharded_executable`. Placement is adaptive: a bucket is
+split only when it carries at least ``min_shard_oprows`` real op-rows
+(candidates x padded op count; `MIN_SHARD_OPROWS` says where the value
+comes from), because a small bucket is dispatch-bound and runs slower
+split. Batches that don't divide the
+device count are padded into the existing power-of-two buckets
+(``shard.shard_pad``), never given new keys.
 
 Below the callables sit two caches that keep warm sweeps device-bound
 (the Python prep — `scan_order` + padding + host->device transfer —
@@ -29,8 +38,9 @@ otherwise dwarfs the simulation itself):
 
 Both hold tensors on the engine's device. Counters track exact-mode
 usage (the search layer proves it verifies shortlists with one batched
-call per round), row/batch cache traffic, and which way the
-``sim_engine`` dispatch went.
+call per round), row/batch cache traffic, which way the ``sim_engine``
+dispatch went, and per-slot placement (``device_rows``) so sharded runs
+can show where rows actually ran.
 """
 from __future__ import annotations
 
@@ -48,15 +58,15 @@ from ...obs.trace import NULL_TRACER
 from ..compile import MicroOps
 from ..types import ServiceTimes
 from .. import torch_sim
-from .buckets import bucket_pow2, group_by_bucket
+from .buckets import group_by_bucket
+from . import shard as _shard
 
 # key: (n_ops_bucket, n_resources_bucket, batch_bucket, exact, n_shards,
 #       faulted, kernel) — faulted buckets take a third FaultArrays
 # argument, so they are a distinct structural class from healthy ones;
 # kernel marks scan callables that run the CUDA sweep_scan kernel rather
-# than the plain PyTorch loop. n_shards is always 1 until the sharded
-# backend is ported; the slot is kept so keys read the same in both
-# packages.
+# than the plain PyTorch loop. A mesh change keeps only the k[4] == 1
+# entries (`set_mesh`).
 CacheKey = Tuple[int, int, int, bool, int, bool, bool]
 
 # the engine's ``sim_engine`` knob: what a scan-mode bucket runs through.
@@ -66,6 +76,15 @@ CacheKey = Tuple[int, int, int, bool, int, bool, bool]
 # engine); "torch" keeps the plain loop. Exact mode always runs the
 # PyTorch step loop — the kernel is scan-only.
 SIM_ENGINES = ("auto", "cuda", "torch")
+
+# a sharded bucket must carry at least this many real op-rows
+# (candidates x padded op count); below it the per-device dispatch
+# overhead exceeds the parallelism win. The value is the reference's,
+# kept so that placement decisions and cache keys match its: the
+# reference measured it on 8 forced CPU host devices (small buckets ran
+# 4-15x slower split, large ones 2-5x faster; the boundary sat near 2^15
+# op-rows). Nothing here measured it on a GPU.
+MIN_SHARD_OPROWS = 32768
 
 
 @dataclass
@@ -83,14 +102,19 @@ class CacheStats:
     row_misses: int = 0
     stack_hits: int = 0           # stacked-bucket-batch cache traffic
     stack_misses: int = 0
-    sharded_batch_calls: int = 0  # simulate_batch calls that sharded >= 1
-                                  # bucket (0 until sharding is ported)
+    sharded_batch_calls: int = 0  # simulate_batch calls that sharded >= 1 bucket
     device_rows: Dict[str, int] = field(default_factory=dict)
-                                  # rows placed per device (padded), sharded only
+                                  # rows placed per mesh slot (padded),
+                                  # sharded only (`shard.slot_names`)
     mp_items: int = 0             # work items dispatched to worker processes
     mp_fallbacks: int = 0         # items a dead worker pushed back in-process
-    mp_late_drops: int = 0        # timed-out items whose late result was
-                                  # discarded (0 until multiproc is ported)
+    mp_late_drops: int = 0        # timed-out items whose worker was already
+                                  # running (cancel failed): the late result —
+                                  # values AND counter rollup — was discarded
+                                  # while the item re-ran in-process, so
+                                  # worker-counter asserts must not be hard
+                                  # while this is nonzero (the late worker may
+                                  # also still be writing the shared disk cache)
     kernel_buckets: int = 0       # callables built on the CUDA sweep_scan
                                   # kernel (scan mode, sim_engine auto/cuda)
     kernel_fallbacks: int = 0     # scan batches that wanted the kernel
@@ -98,9 +122,11 @@ class CacheStats:
                                   # PyTorch loop because the engine's device
                                   # is the CPU
     kernel_launches: int = 0      # sweep_scan kernel launches (counted by
-                                  # the kernel's wrapper, ops.sweep_scan)
+                                  # the kernel's wrapper, ops.sweep_scan;
+                                  # worker launches roll up from multiproc)
     worker_rows: Dict[str, int] = field(default_factory=dict)
-                                  # rows simulated per worker process (padded)
+                                  # rows simulated per worker process (padded) —
+                                  # the multiproc sibling of device_rows
 
     def reset(self) -> None:
         # derived from the dataclass fields, never a hand-maintained
@@ -144,6 +170,13 @@ class SweepEngine:
     constructor raises when no card is present — pass ``device="cpu"``
     for the plain PyTorch path on the host).
 
+    ``devices`` selects sharded execution (`shard.resolve_mesh`
+    semantics: None = one device, 0 = all visible devices of the
+    engine's type, n = first n, or an explicit device sequence). Sharded
+    and unsharded results are element-wise identical
+    (tests/test_torch_shard.py). ``min_shard_oprows`` tunes the
+    adaptive placement threshold (0 = always shard).
+
     ``sim_engine`` picks what a scan-mode bucket runs through
     (`SIM_ENGINES`): "auto" launches the CUDA `kernels.sweep_scan`
     kernel on a CUDA engine and runs the plain PyTorch loop on a CPU
@@ -152,11 +185,25 @@ class SweepEngine:
     so the knob is purely a throughput decision — exact mode always runs
     the PyTorch step loop. Kernel launches are counted in
     ``stats.kernel_launches``.
+
+    ``workers`` is the engine's default host-process fan-out: the search
+    layer (`explore`/`explore_many`/`successive_halving`) and
+    `Predictor.predict_batch` dispatch sweeps through
+    `multiproc.MultiprocSweep` when it is > 1 and no per-call
+    ``workers=`` overrides it. The engine's own ``simulate_batch`` always
+    runs in-process (it receives already-compiled DAGs; the multiproc
+    layer dispatches (workflow, config) specs so workers can warm-start
+    from the shared disk compile cache) — worker counters roll up into
+    this engine's ``stats`` (``worker_rows``, ``mp_items``,
+    ``kernel_launches``).
     """
 
     def __init__(self, max_entries: int = 32, *,
+                 devices: _shard.DevicesLike = None,
+                 min_shard_oprows: int = MIN_SHARD_OPROWS,
                  max_row_entries: int = 4096,
                  max_stack_entries: int = 32,
+                 workers: int = 1,
                  sim_engine: str = "auto",
                  tracer=None,
                  device: DeviceLike = "cuda"):
@@ -165,11 +212,13 @@ class SweepEngine:
                              f"got {sim_engine!r}")
         self.device = resolve_device(device)
         self.max_entries = max_entries
+        self.workers = max(int(workers), 1)
         self.sim_engine = sim_engine
         # wall-clock span recorder (obs.trace) — the no-op NULL_TRACER
         # unless a SweepSession(tracer=...) points it at a live one; the
         # instrumented path is identical either way
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.min_shard_oprows = min_shard_oprows
         self.max_row_entries = max_row_entries
         self.max_stack_entries = max_stack_entries
         self._fns: "OrderedDict[CacheKey, object]" = OrderedDict()
@@ -179,13 +228,44 @@ class SweepEngine:
         self._rows: "OrderedDict[tuple, tuple]" = OrderedDict()
         # tuple of row keys -> stacked device batch
         self._stacks: "OrderedDict[tuple, object]" = OrderedDict()
+        self._mesh = _shard.resolve_mesh(devices, self.device)
         self.stats = CacheStats()
 
     # -- device placement -----------------------------------------------------
     @property
+    def mesh(self) -> Optional[_shard.Mesh]:
+        return self._mesh
+
+    @property
     def n_shards(self) -> int:
-        """Always 1: device sharding is not ported yet."""
-        return 1
+        return _shard.shard_count(self._mesh)
+
+    def set_mesh(self, mesh: Optional[_shard.Mesh]) -> "SweepEngine":
+        """Point the engine at an already-resolved 1-D mesh (or None for
+        one device). Sharded callables close over their mesh, so
+        changing it drops them; plain (shards=1) entries survive. Mesh
+        *resolution* (device counts, lists, pow2 prefixes) lives in the
+        backend/session layer — see `shard.resolve_mesh`."""
+        if _shard.mesh_identity(mesh) != _shard.mesh_identity(self._mesh):
+            self._fns = OrderedDict(
+                (k, fn) for k, fn in self._fns.items() if k[4] == 1)
+            self._mesh = mesh
+        return self
+
+    def use_devices(self, devices: _shard.DevicesLike) -> "SweepEngine":
+        """`set_mesh` with ``devices`` resolved by `shard.resolve_mesh` on
+        the engine's device type (the reference engine's spelling)."""
+        return self.set_mesh(_shard.resolve_mesh(devices, self.device))
+
+    def bucket_shards(self, n_rows: int, n_ops_bucket: int) -> int:
+        """Adaptive placement: shards for a bucket of ``n_rows`` real
+        candidates whose DAGs pad to ``n_ops_bucket`` ops. 1 = keep the
+        bucket on one device (too little work to split)."""
+        if self._mesh is None:
+            return 1
+        if n_rows * n_ops_bucket < self.min_shard_oprows:
+            return 1
+        return self.n_shards
 
     def _use_kernel(self, exact: bool) -> bool:
         """Resolve the ``sim_engine`` knob for one scan batch, before any
@@ -213,6 +293,8 @@ class SweepEngine:
         self.stats.misses += 1
         fn = _make_executable(n_resources=key[1], exact=key[3],
                               faulted=key[5], kernel=key[6])
+        if key[4] > 1:
+            fn = _shard.sharded_executable(fn, self._mesh, self.device)
         if key[6]:
             self.stats.kernel_buckets += 1
         self._fns[key] = fn
@@ -330,14 +412,18 @@ class SweepEngine:
         out = np.zeros(len(ops_list))
         if not ops_list:
             return out
+        sharded_any = False
         use_kernel = self._use_kernel(exact)
         sim_phase = "exact-verify" if exact else "device-sim"
         with self.tracer.span("simulate_batch", phase=sim_phase,
                               candidates=len(ops_list), exact=exact):
             for (n_pad, r_pad), idxs in group_by_bucket(ops_list).items():
-                # the batch bucket is a power of two, so odd batch sizes
-                # reuse existing buckets instead of minting new keys
-                c_pad = bucket_pow2(len(idxs), 1)
+                shards = self.bucket_shards(len(idxs), n_pad)
+                sharded_any |= shards > 1
+                # remainder handling: the batch bucket is a power of two
+                # >= the shard count, so it always divides the mesh —
+                # odd batch sizes reuse existing buckets, never mint keys
+                c_pad = _shard.shard_pad(len(idxs), shards)
                 with self.tracer.span(f"prep[{n_pad}x{r_pad}]",
                                       phase="host-prep", rows=len(idxs)):
                     keyed = [self._prepped_row(ops_list[i], st_list[i],
@@ -361,13 +447,20 @@ class SweepEngine:
                     st_vecs = torch.from_numpy(np.stack(vecs)).to(self.device)
                 with self.tracer.span(f"sim[{n_pad}x{r_pad}x{c_pad}]",
                                       phase=sim_phase, rows=len(idxs),
-                                      shards=1, faulted=faulted_b):
+                                      shards=shards, faulted=faulted_b):
                     fn = self._executable((n_pad, r_pad, c_pad, exact,
-                                           1, faulted_b, use_kernel))
+                                           shards, faulted_b, use_kernel))
                     res = fn(batch, st_vecs, fbatch if faulted_b else None,
                              stats=self.stats)
                     # the copy to the host waits for the device result,
                     # so the span covers real execution, not the enqueue
                     out[idxs] = res.cpu().numpy()[:len(idxs)]
                 self.stats.padded_rows += c_pad
+                if shards > 1:
+                    rows_per_slot = c_pad // shards
+                    for key in _shard.slot_names(self._mesh):
+                        self.stats.device_rows[key] = \
+                            self.stats.device_rows.get(key, 0) + rows_per_slot
+        if sharded_any:
+            self.stats.sharded_batch_calls += 1
         return out

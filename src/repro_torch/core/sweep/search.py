@@ -14,13 +14,13 @@ Multi-objective output: makespan, allocation cost (node-seconds), and
 cost-efficiency, with the Pareto front identified.
 
 Execution is session-driven: every entry point takes ``session=`` (a
-`session.SweepSession` whose backend decides how the sweep executes and
-whose engine decides on which device). The pre-session kwargs —
-``engine=``, ``compile_cache=``, ``devices=``, ``workers=`` — are
-deprecated shims that construct an equivalent session via
-`SweepSession.from_legacy`; they cannot be combined with ``session=``,
-and the two that name backends the port does not have yet
-(``devices=``, ``workers`` > 1) raise `NotImplementedError`.
+`session.SweepSession` whose backend decides inline vs device-sharded
+vs multi-process execution — results element-wise identical across all
+three, tests/test_torch_backends.py — and whose engine decides on which
+device). The pre-session kwargs — ``engine=``, ``compile_cache=``,
+``devices=``, ``workers=`` — are deprecated shims that construct an
+equivalent session via `SweepSession.from_legacy`; they keep working
+and cannot be combined with ``session=``.
 """
 from __future__ import annotations
 
@@ -31,7 +31,8 @@ from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 from ..faults import FAILED_THRESHOLD, FaultScenario
 from ..types import MB, Placement, ServiceTimes, Workflow, partitioned_config
-from .backends import SweepRun, resolve_st
+from .backends import SweepRun
+from .multiproc import resolve_st
 from .compilecache import CompileCache
 from .engine import SweepEngine
 from .session import SweepSession
@@ -258,9 +259,11 @@ def explore(workflow_for: Callable[[Candidate], Workflow],
     against the already-warm compile cache, on the session's device.
 
     ``session`` supplies the execution state, backend and device
-    (results are bit-identical with the compile cache on or off).
+    (inline / device-sharded / multi-process — results bit-identical
+    across all three, and with the compile cache on or off).
     ``compile_workers`` > 1 compiles cold structural classes on a
-    thread pool.
+    thread pool (inline backends only; worker processes compile their
+    own classes).
 
     Deprecated: ``engine=``/``compile_cache=``/``devices=``/``workers=``
     construct an equivalent session on the default session's shared
@@ -324,8 +327,9 @@ def explore_many(workflows: Sequence, candidates: Sequence[Candidate],
     Returns one evaluation list per workflow (aligned with
     ``workflows``), each sorted by the objective; `Evaluation.index` is
     the position in the flattened product (workflow-major). The
-    session's backend decides where the product sweep runs.
-    ``faults`` crosses the candidate
+    session's backend decides where the product sweep runs; a
+    multi-process backend partitions its structural-class groups across
+    host processes (see `multiproc`). ``faults`` crosses the candidate
     grid with a fault-scenario axis (`with_faults`) before the product
     is formed."""
     if faults is not None:
@@ -390,7 +394,7 @@ def successive_halving(workflow_for: Callable[[Candidate], Workflow],
     exact-verified winners with far fewer exact sims than exhaustive
     verification. Every round — scan and exact alike — runs through the
     session's backend on the same prepared run, so bucket callables,
-    DAGs and device batches stay warm across rounds. ``faults`` crosses the
+    DAGs, device batches and worker pools stay warm across rounds. ``faults`` crosses the
     grid with a fault-scenario axis before round one, like `explore`.
     Legacy kwargs as in `explore` (deprecated)."""
     if faults is not None:

@@ -6,19 +6,23 @@ A session gathers everything a sweep touches behind one object, instead
 of process-wide singletons that callers would clobber for each other:
 
     engine         — `SweepEngine`: per-bucket callable LRU + host-prep
-                     caches + device + `CacheStats`
+                     caches + device + mesh + `CacheStats` rollup
+                     (worker and device counters included)
     compile_cache  — `CompileCache`: structure-keyed DAG LRU, optionally
                      disk-persisted (``cache_dir=``)
-    backend        — `backends.ExecutionBackend`: HOW sweeps run — one
+    backend        — `backends.ExecutionBackend`: HOW sweeps run
+                     (inline / device-sharded / multi-process) — one
                      constructor argument instead of threaded kwargs
-                     (`InlineBackend` is the one ported so far)
     sysid          — optional `sysid.SysIdReport` (or a path to a saved
                      one) whose service times are the session default
                      for `prepare`
+    pools          — lazily-spawned `multiproc.PoolHandle`s, shut by
+                     `close()`
 
-Two sessions never interfere: each owns its engine (hence its device and
-caches). ``close()`` (or the context manager) releases everything the
-session pinned.
+Two sessions never interfere: each owns its engine (hence its device,
+mesh and caches), so `Predictor(devices=...)` re-points no one else's
+placement. ``close()`` (or the context manager) releases everything the
+session pinned; the session stays constructed but refuses new pools.
 
 `default_session()` is the one sanctioned process-wide accessor — it
 backs the legacy `default_engine()` / `default_compile_cache()` shims
@@ -28,15 +32,17 @@ point of the port it runs on CUDA and raises when no card is present.
 from __future__ import annotations
 
 import threading
-from typing import Any, Optional, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 from ...env import DeviceLike
 from ...obs.trace import NULL_TRACER
 from ..sysid import SysIdReport
 from ..types import StorageConfig, Workflow
-from .backends import ExecutionBackend, InlineBackend, StLike, SweepRun
+from .backends import (ExecutionBackend, InlineBackend, ShardedBackend,
+                       SweepRun)
 from .compilecache import CompileCache
 from .engine import SIM_ENGINES, SweepEngine
+from .multiproc import MultiprocBackend, PoolHandle, StLike
 
 
 class SweepSession:
@@ -49,9 +55,9 @@ class SweepSession:
     `SysIdReport`, a path to one saved by `SysIdReport.save`, or any
     object with a ``service_times`` attribute) supplies default service
     times for `prepare`. ``tracer`` (an `obs.trace.Tracer`) turns on
-    wall-clock span recording across the pipeline — engine buckets and
-    backend compile; the `NULL_TRACER` default records nothing and
-    changes no behaviour. ``device`` is where a session-built engine
+    wall-clock span recording across the pipeline — engine buckets,
+    backend compile/dispatch, multiproc workers; the `NULL_TRACER`
+    default records nothing and changes no behaviour. ``device`` is where a session-built engine
     runs (default ``"cuda"``, raising when no card is present); a
     borrowed ``engine=`` keeps its own device.
     """
@@ -95,6 +101,7 @@ class SweepSession:
         if sysid is not None and not hasattr(sysid, "service_times"):
             raise TypeError("sysid must expose a .service_times attribute")
         self.sysid = sysid
+        self._pools: Dict[int, PoolHandle] = {}
         # serializes whole sweeps across threads (see `lock`): the
         # engine's callable/host-prep LRUs are not safe under
         # concurrent simulate_batch calls, and a long-lived server
@@ -105,7 +112,7 @@ class SweepSession:
     # -- state accessors -------------------------------------------------------
     @property
     def stats(self):
-        """The engine's `CacheStats`."""
+        """Rolled-up `CacheStats` (engine + worker + device counters)."""
         return self.engine.stats
 
     @property
@@ -118,6 +125,11 @@ class SweepSession:
         return self.engine.device
 
     @property
+    def mesh(self):
+        """The engine's sweep mesh (None: one device)."""
+        return self.engine.mesh
+
+    @property
     def lock(self) -> threading.RLock:
         """The session's sweep guard (reentrant). `prepare` and
         `simulate_batch` take it per call, which serializes the *state
@@ -127,6 +139,23 @@ class SweepSession:
         across the whole sweep so interleaved requests
         cannot thrash the engine's LRUs mid-search."""
         return self._mu
+
+    def pool_handle(self, workers: int) -> PoolHandle:
+        """The session-owned worker pool for ``workers`` (lazily
+        spawned, reused across this session's sweeps, shut by
+        `close()`)."""
+        if self.closed:
+            raise RuntimeError("session is closed")
+        workers = max(int(workers), 1)
+        handle = self._pools.get(workers)
+        if handle is None:
+            handle = self._pools[workers] = PoolHandle(workers)
+        return handle
+
+    def live_pools(self) -> int:
+        """Worker pools this session has actually spawned (leak probe
+        for the open/close-cycle tests)."""
+        return sum(1 for h in self._pools.values() if h.live)
 
     # -- execution -------------------------------------------------------------
     def prepare(self, wfs: Sequence[Workflow], cfgs: Sequence[StorageConfig],
@@ -161,9 +190,13 @@ class SweepSession:
 
     # -- lifecycle -------------------------------------------------------------
     def close(self) -> None:
-        """Release the engine's callable + host-prep LRUs and the device
-        buffers they pin. Idempotent; the compile cache's disk entries
-        (if any) survive for the next session's warm start."""
+        """Shut this session's worker pools and release the engine's
+        callable + host-prep LRUs and the device buffers they pin.
+        Idempotent; the compile cache's disk entries (if any) survive
+        for the next session's warm start."""
+        for handle in self._pools.values():
+            handle.close()
+        self._pools.clear()
         self.engine.release()
         self.closed = True
 
@@ -182,23 +215,25 @@ class SweepSession:
         """Session semantics for the deprecated ``engine=`` /
         ``compile_cache=`` / ``devices=`` / ``workers=`` kwargs on the
         search entry points and `Predictor`: borrow the default
-        session's engine/cache unless given. Only the inline backend is
-        ported, so ``workers`` > 1 and ``devices`` raise
-        `NotImplementedError` instead of picking the multi-process or
-        sharded backend. Such sessions are throwaway handles onto
-        borrowed state — they are never closed."""
-        if workers is not None and int(workers) > 1:
-            raise NotImplementedError(
-                "workers > 1 needs the multi-process backend, which is "
-                "not ported yet")
-        if devices is not None:
-            raise NotImplementedError(
-                "devices= needs the sharded backend, which is not ported "
-                "yet")
+        session's engine/cache unless given, pick the backend the old
+        kwargs implied (``workers`` > 1 beats ``devices``, matching the
+        reference's dispatch order), and share the process-wide worker
+        fleet. Such sessions are throwaway handles onto borrowed state —
+        they are never closed."""
         eng = engine if engine is not None else default_session().engine
         cache = compile_cache if compile_cache is not None \
             else default_session().compile_cache
-        return cls(InlineBackend(), engine=eng, compile_cache=cache)
+        n_workers = workers if workers is not None \
+            else getattr(eng, "workers", 1)
+        n_workers = max(int(n_workers), 1)
+        if n_workers > 1:
+            backend: ExecutionBackend = MultiprocBackend(n_workers,
+                                                         shared_pools=True)
+        elif devices is not None:
+            backend = ShardedBackend(devices)
+        else:
+            backend = InlineBackend()
+        return cls(backend, engine=eng, compile_cache=cache)
 
 
 # The one sanctioned process-wide slot: backs default_session() and the

@@ -11,8 +11,9 @@ PyTorch with CUDA and nothing of the reference's stack:
 
 Tolerance for sweep_scan: none. The recurrence is `max` and `+` in f64,
 so the kernel is `torch.equal` to its plain version (NaN equal to NaN,
-for the inputs that make NaN), and a sweep on the card equals the same
-sweep on the CPU element for element.
+for the inputs that make NaN), a sweep on the card equals the same
+sweep on the CPU element for element, and the multi-process and sharded
+backends on the card equal the inline one.
 For flash_attention, ssd and moe_gmm: the reference's `_tol` (f32 1e-5,
 bf16 2e-2), both sides computing in f32 in another order (moe_gmm's bf16
 path rounds act to bf16 once); the SSD state at 1e-4 / 5e-2 as the
@@ -185,6 +186,68 @@ def test_negative_net_latency_on_the_card_equals_the_plain_path():
     rep = torch_sim.simulate(two, T.PAPER_RAMDISK.replace(net_latency=-0.5),
                              stats=stats)
     assert stats.kernel_launches == 1 and rep.makespan == 2.0
+
+
+def _backend_grid():
+    cands = T.grid(n_nodes=[6], chunk_sizes=[512 * 1024, T.MB],
+                   replications=(1, 2),
+                   faults=(None, T.parse_faults("disk=0:8,kill=1@40")))
+
+    def workflow_for(c):
+        return TW.blast(c.n_app, n_queries=6, db_mb=8)
+    return cands, workflow_for
+
+
+@pytest.mark.gpu
+def test_multiproc_workers_on_the_card_equal_inline(tmp_path):
+    """Two worker processes, each on the card, launch K1 for their items:
+    the sweep equals the inline one on the card, no item falls back, and
+    the workers' kernel launches roll up into the parent's stats. The
+    DAG cache is on disk, so a class whose verify item lands on the
+    other worker is loaded there, not compiled again."""
+    need_card()
+    cands, workflow_for = _backend_grid()
+    with T.SweepSession() as inline, \
+            T.SweepSession(T.MultiprocBackend(2, item_timeout_s=600),
+                           cache_dir=str(tmp_path)) as mp:
+        ei = T.explore(workflow_for, cands, T.PAPER_RAMDISK, verify_top_k=2,
+                       session=inline)
+        em = T.explore(workflow_for, cands, T.PAPER_RAMDISK, verify_top_k=2,
+                       session=mp)
+        s = mp.stats
+        assert mp.device.type == "cuda" and s.mp_items > 0
+        assert s.mp_fallbacks == 0 and s.mp_late_drops == 0
+        assert s.kernel_fallbacks == 0 and s.kernel_launches > 0
+        assert sum(s.worker_rows.values()) == s.padded_rows
+        assert sum(mp.compile_stats.worker_compiles.values()) == \
+            mp.compile_stats.grid_classes
+    assert [e.index for e in em] == [e.index for e in ei]
+    assert [e.scan_makespan for e in em] == [e.scan_makespan for e in ei]
+    assert [e.makespan for e in em] == [e.makespan for e in ei]
+
+
+@pytest.mark.gpu
+def test_sharded_on_two_slots_of_one_card_equals_inline():
+    """A mesh naming the card twice splits every bucket in two, each half
+    through K1: equal to the inline sweep to the bit. (It tests the
+    split; it measures nothing about multi-GPU speed.)"""
+    need_card()
+    cands, workflow_for = _backend_grid()
+    slots = [torch.device("cuda", 0)] * 2
+    with T.SweepSession() as inline, T.SweepSession(
+            T.ShardedBackend(slots, min_shard_oprows=0)) as sharded:
+        ei = T.explore(workflow_for, cands, T.PAPER_RAMDISK, verify_top_k=2,
+                       session=inline)
+        es = T.explore(workflow_for, cands, T.PAPER_RAMDISK, verify_top_k=2,
+                       session=sharded)
+        s = sharded.stats
+        assert sharded.engine.n_shards == 2 and s.sharded_batch_calls > 0
+        assert set(s.device_rows) == {"cuda:0[0]", "cuda:0[1]"}
+        assert s.kernel_fallbacks == 0
+        # each split scan bucket launched K1 once per slot
+        assert s.kernel_launches == 2 * inline.stats.kernel_launches > 0
+    assert [e.index for e in es] == [e.index for e in ei]
+    assert [e.makespan for e in es] == [e.makespan for e in ei]
 
 
 # (B, S, H, K, hd, window): tests/test_kernels.py's rows, zamba2's

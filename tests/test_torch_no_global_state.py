@@ -9,6 +9,9 @@ library through), and must exit 0: K1's launch count lives in the
 session's `CacheStats`, and loaded libraries in a memoised function.
 A copy of the kernel package with a module-level counter put back must
 fail the same check, so the check is known to bite on these roots.
+The multi-process module's shared fleet (`_POOLS`) and per-worker
+globals (`_W`) pass only through the tool's allowlist, which names them
+by file: the same registry in a file of another name fails.
 """
 import shutil
 import subprocess
@@ -53,3 +56,20 @@ def test_the_check_bites_on_a_port_root(tmp_path, snippet, what):
     out = run_tool(copy)
     assert out.returncode == 1
     assert what in out.stderr
+
+
+def test_the_pool_registry_passes_only_under_its_own_file_name(tmp_path):
+    """Mutation check: the sweep stack's `_POOLS = {}` is allowlisted as
+    ``multiproc.py:_POOLS``; put in a copy of the root under another file
+    name, it fails the unchanged tool."""
+    copy = tmp_path / "sweep"
+    shutil.copytree(PORT / "core" / "sweep", copy,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    assert "_POOLS: Dict[int, ProcessPoolExecutor] = {}" in \
+        (copy / "multiproc.py").read_text()
+    assert run_tool(copy).returncode == 0
+    (copy / "fleet.py").write_text(
+        "from typing import Dict\n\n_POOLS: Dict[int, object] = {}\n")
+    out = run_tool(copy)
+    assert out.returncode == 1
+    assert "fleet.py" in out.stderr and "_POOLS" in out.stderr

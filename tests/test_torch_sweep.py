@@ -296,6 +296,9 @@ def test_session_lifecycle_and_sysid_default():
 
 
 def test_parts_left_for_later_slices_raise():
+    """The legacy ``workers=`` / ``devices=`` kwargs, which raised until
+    the multi-process and sharded backends were ported, now pick them as
+    the reference does; combining them with ``session=`` still raises."""
     wf = TW.pipeline(3)
     cands = T.grid(n_nodes=[5])
     with cpu_session() as sess:
@@ -303,19 +306,22 @@ def test_parts_left_for_later_slices_raise():
             T.explore(lambda c: wf, cands, T.PAPER_RAMDISK, session=sess,
                       workers=2)
     eng = T.SweepEngine(device="cpu")
-    with pytest.raises(NotImplementedError):
-        T.SweepSession.from_legacy(engine=eng, compile_cache=CompileCache(),
-                                   workers=2)
-    with pytest.raises(NotImplementedError):
-        T.SweepSession.from_legacy(engine=eng, compile_cache=CompileCache(),
-                                   devices=0)
+    mp = T.SweepSession.from_legacy(engine=eng, compile_cache=CompileCache(),
+                                    workers=2)
+    assert isinstance(mp.backend, T.MultiprocBackend)
+    assert mp.backend.workers == 2 and mp.engine is eng
+    sharded = T.SweepSession.from_legacy(engine=eng,
+                                         compile_cache=CompileCache(),
+                                         devices=0)
+    assert isinstance(sharded.backend, T.ShardedBackend)
     legacy = T.SweepSession.from_legacy(engine=eng,
                                         compile_cache=CompileCache())
     assert isinstance(legacy.backend, T.InlineBackend)
     assert legacy.engine is eng
-    with pytest.raises(NotImplementedError):
-        T.Predictor(T.PAPER_RAMDISK, workers=2, device="cpu").predict_batch(
-            [wf], [cands[0].to_config()])
+    pred = T.Predictor(T.PAPER_RAMDISK, workers=2, device="cpu")
+    assert isinstance(pred.sweep_session().backend, T.MultiprocBackend)
+    pred = T.Predictor(T.PAPER_RAMDISK, devices=0, device="cpu")
+    assert isinstance(pred.sweep_session().backend, T.ShardedBackend)
 
 
 def test_predictor_backends_and_batch_parity():
