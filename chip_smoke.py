@@ -102,9 +102,28 @@ line:
                same traffic as model_path, every K2 and K4 call of one
                forward per shape held in situ, one K4 launch per layer
                in every prefill forward and every serve step
+  train_path   the training path: (a) granite-3-2b at full width and
+               depth (40 layers, 2.63e9 parameters in f32, bf16 compute,
+               remat), 10 AdamW steps on one fixed 8 x 512 batch from
+               the port's DataPipeline: loss and grad norm finite, the
+               last 3 steps' mean loss below the first's, no K2-K4
+               launch; ms a step (host clock), forward+backward and
+               update (CUDA events), tokens/s, peak device bytes, and
+               one step more under torch.profiler (device time by
+               kernel class, the device's idle share); (b)
+               one f32 train step on the card against the same step on
+               the CPU, depth cut 40 -> 2, TF32 off (loss rtol 1e-5, grad
+               norm rtol 1e-4, parameters atol 1e-6 + 1e-3 lr); (c)
+               `train_loop` at full width, depth cut 40 -> 2, 8 steps of
+               8 x 512, a checkpoint every 4 steps into the store planned
+               by `plan_checkpoint` (27 candidates through K1 on the
+               default session, the winner held to the bit against K1's
+               plain version), a fault at step 6, the restored state
+               `torch.equal` to the state saved at step 4; plan, write
+               and restore seconds, bytes written
   {"kernels": [...]}  one entry per kernel: launches counted during its
                paths (K1's by path: main_path, backends_path,
-               advisor_path, fixture_sweep), its time at the path's largest shape beside its
+               advisor_path, fixture_sweep, train_path), its time at the path's largest shape beside its
                bound, the plain version's time beside the kernel's at a
                shape the plain version can take, and a library call's
                time where one PyTorch call computes the same function
@@ -271,6 +290,26 @@ GMM_CHECK = [(1, 4, 64, 32, 64, False), (2, 2, 128, 64, 128, False),
 MOE_MODEL = "mixtral-8x22b"
 MOE_LAYERS = 8
 MOE_F32_LAYERS = 2
+
+# the training path: granite-3-2b (the reference's training architecture)
+# at full width and depth, 40 layers, 2.63e9 parameters in f32 with bf16
+# compute and remat: parameters, gradients and the two AdamW moments are
+# 42 GB, so it trains on one 80 GB card uncut. (a) TRAIN_STEPS steps on
+# one fixed 8 x 512 batch from the port's DataPipeline (4 shards), the
+# AdamW defaults but a warmup of 2 steps; (b) one f32 step on the card
+# against the same step on the CPU at full width, depth cut 40 -> 2, on a
+# 1 x 128 batch; (c) the driver, `train_loop`, at full width, depth cut
+# 40 -> 2 (0.32e9 parameters, a 3.9 GB state, which every checkpoint
+# copies to the host), 8 steps of 8 x 512 with a checkpoint every 4
+# steps, a fault at step 6 and the predictor-planned store under
+# build/chip_smoke/train/
+TRAIN_MODEL = "granite-3-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_SHARDS = 8, 512, 4
+TRAIN_STEPS = 10
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+TRAIN_CUT_LAYERS = 2
+PARITY_BATCH, PARITY_SEQ = 1, 128
+DRIVER_STEPS, DRIVER_CKPT_EVERY, DRIVER_FAIL_AT = 8, 4, 6
 
 
 def emit(obj) -> None:
@@ -821,6 +860,23 @@ def phase_backends_path(core, warm):
     return launches
 
 
+def hold_plan_winner(sess, plan, total_bytes, n_hosts, st) -> None:
+    """The checkpoint plan's winner: its scan makespan held to the bit
+    against K1's plain version on the card, a run that launches nothing."""
+    from repro_torch.core import torch_sim
+    from repro_torch.core.workloads import checkpoint_write
+    launches = sess.stats.kernel_launches
+    n_writers = n_hosts - 1
+    w_ops = sess.compile_cache.get(
+        checkpoint_write(n_writers, max(total_bytes // n_writers, 1),
+                         local=plan.local_placement), plan.config)
+    w_plain = torch_sim.simulate(w_ops, st, device=sess.device,
+                                 use_kernel=False).makespan
+    assert w_plain == plan.table[0]["predicted_write_s"], \
+        (w_plain, plan.table[0])
+    assert sess.stats.kernel_launches == launches, "a plain run launched K1"
+
+
 def phase_advisor_path(core, warm):
     """The advisor path on the card, on the main path's warm session:
     sysid at the reference test's probe settings; the paper-scale BLAST
@@ -836,7 +892,6 @@ def phase_advisor_path(core, warm):
     from repro_torch.core import compile as compile_mod
     from repro_torch.core import ref_sim, sysid, torch_sim, trace
     from repro_torch.core.emulator import EmulatorParams
-    from repro_torch.core.workloads import checkpoint_write
     from repro_torch.obs import (metrics_snapshot, resource_names,
                                  timeline_to_events, write_trace)
     from repro_torch.serve import AdvisorRequest, AdvisorServer
@@ -999,16 +1054,7 @@ def phase_advisor_path(core, warm):
     assert stats.kernel_launches > before_plan, "the plan took no kernel"
     assert stats.kernel_fallbacks == 0, "an advisor-path bucket fell back"
     launches = stats.kernel_launches
-    # the winner's scan makespan against K1's plain version on the card
-    n_writers = CKPT_HOSTS - 1
-    w_ops = sess.compile_cache.get(
-        checkpoint_write(n_writers, max(CKPT_BYTES // n_writers, 1),
-                         local=plan.local_placement), plan.config)
-    w_plain = torch_sim.simulate(w_ops, st, device=sess.device,
-                                 use_kernel=False).makespan
-    assert w_plain == plan.table[0]["predicted_write_s"], \
-        (w_plain, plan.table[0])
-    assert stats.kernel_launches == launches, "a plain run launched K1"
+    hold_plan_winner(sess, plan, CKPT_BYTES, CKPT_HOSTS, st)
 
     emit({"phase": "advisor_path",
           "sysid": {"seconds": sysid_s, "params_digest": report.digest,
@@ -1290,11 +1336,6 @@ def agreement(a, b):
             float((a.argmax(-1) == b.argmax(-1)).float().mean()))
 
 
-def reset_counts(ops_mods):
-    for m in ops_mods:
-        m.reset_launch_count()
-
-
 class InSituCheck:
     """For one model forward, every flash_attention / ssd / moe_gmm kernel
     launch the model makes is also run through the plain version on the
@@ -1303,7 +1344,8 @@ class InSituCheck:
     through 54 layers in bf16. The bound is relative to the tensor's
     scale, max |kernel - plain| <= tol * max |plain|: an element that is a
     near-cancelling sum of large terms carries an absolute rounding error
-    of eps times those terms in either version. The plain runs launch
+    of eps times those terms in either version. The kernel call counts
+    into the ``counts`` the model hands down; the plain runs launch
     nothing and count nothing. Restores the wrappers on exit.
 
     ``plain`` replaces some of the wrappers' plain versions by others,
@@ -1357,10 +1399,11 @@ class InSituCheck:
                 self.captured[name] = tuple(
                     x.clone() if torch.is_tensor(x) else x for x in args)
 
-        def fa_checked(q, k, v, *, causal=True, window=0, use_kernel):
+        def fa_checked(q, k, v, *, causal=True, window=0, use_kernel,
+                       counts=None):
             assert causal, "the model's attention is causal"
             out = fa(q, k, v, causal=causal, window=window,
-                     use_kernel=use_kernel)
+                     use_kernel=use_kernel, counts=counts)
             want = fa_plain(q, k, v, window)
             err = self.check(f"flash_attention in situ, call "
                              f"{self.calls['flash_attention']}", out, want,
@@ -1369,8 +1412,10 @@ class InSituCheck:
             self._note("flash_attention", err)
             return out
 
-        def ssd_checked(x, dt, a, b, c, *, chunk=128, use_kernel):
-            y, h = ssd(x, dt, a, b, c, chunk=chunk, use_kernel=use_kernel)
+        def ssd_checked(x, dt, a, b, c, *, chunk=128, use_kernel,
+                        counts=None):
+            y, h = ssd(x, dt, a, b, c, chunk=chunk, use_kernel=use_kernel,
+                       counts=counts)
             y0, h0 = ssd_plain(x, dt, a, b, c, chunk)
             keep("ssd", (x, dt, a, b, c, chunk))
             tag = f"ssd in situ, call {self.calls['ssd']}"
@@ -1379,8 +1424,8 @@ class InSituCheck:
             self._note("ssd", err)
             return y, h
 
-        def gmm_checked(x, wg, wu, wd, *, use_kernel):
-            out = gmm(x, wg, wu, wd, use_kernel=use_kernel)
+        def gmm_checked(x, wg, wu, wd, *, use_kernel, counts=None):
+            out = gmm(x, wg, wu, wd, use_kernel=use_kernel, counts=counts)
             want = gmm_plain(x, wg, wu, wd)
             err = self.check(f"moe_gmm in situ, call {self.calls['moe_gmm']}",
                              out, want, t["gmm"])
@@ -1411,8 +1456,7 @@ class InSituCheck:
         its log decays in f32 and at 128 chunks of 256 steps strays
         further than 1e-5 itself (the kernel sums them in f64); how far
         is reported beside. Returns the largest error over max |plain|
-        per kernel. These launches are a comparison's: read the path's
-        launch counts before."""
+        per kernel. These launches are a comparison's and count nowhere."""
         fa, ssd, _ = self.orig
         fa_plain, ssd_chunked_plain = (self._plain["flash_attention"],
                                        self._plain["ssd"])
@@ -1436,7 +1480,7 @@ class InSituCheck:
                 "ssd_chunked_vs_sequential_not_held": chunked}
 
 
-def hold_decode_against_prefill(cfg32, params32, prompts, prefill32):
+def hold_decode_against_prefill(cfg32, params32, prompts, prefill32, counts):
     """DECODE_CHECK_LEN teacher-forced f32 serve steps, each step's logits
     held against the f32 prefill's at that position (cache slot, in-place
     state, rotary offset): argmax agreement at MIN_ARGMAX_AGREEMENT and
@@ -1446,7 +1490,7 @@ def hold_decode_against_prefill(cfg32, params32, prompts, prefill32):
     from repro_torch.train.step import make_serve_step
     state = init_decode_state(cfg32, N_REQUESTS, PROMPT_LEN + GEN_LEN,
                               dtype=torch.float32, device=prompts.device)
-    serve = make_serve_step(cfg32, use_kernel=True)
+    serve = make_serve_step(cfg32, use_kernel=True, counts=counts)
     dec = []
     for t in range(DECODE_CHECK_LEN):
         _nxt, lg, state = serve(params32, state, prompts[:, t])
@@ -1463,7 +1507,7 @@ def hold_decode_against_prefill(cfg32, params32, prompts, prefill32):
     return diff, scale, agree
 
 
-def serve_requests(cfg, params, prompts, last_prefill):
+def serve_requests(cfg, params, prompts, last_prefill, counts):
     """Serve the prompts as `examples/serve_batch.py` serves: PROMPT_LEN - 1
     teacher-forced serve steps, then GEN_LEN greedy tokens, in the served
     dtype; the first greedy step's logits are compared with the
@@ -1472,7 +1516,7 @@ def serve_requests(cfg, params, prompts, last_prefill):
     from repro_torch.train.step import make_serve_step
     state = init_decode_state(cfg, N_REQUESTS, PROMPT_LEN + GEN_LEN,
                               device=prompts.device)
-    serve = make_serve_step(cfg, use_kernel=True)
+    serve = make_serve_step(cfg, use_kernel=True, counts=counts)
     t0 = time.perf_counter()
     for t in range(PROMPT_LEN - 1):
         _nxt, _logits, state = serve(params, state, prompts[:, t])
@@ -1506,8 +1550,10 @@ def serve_requests(cfg, params, prompts, last_prefill):
 
 def phase_model_path(fa_ops, ssd_ops, gmm_ops):
     """zamba2-2.7b at full width and depth through the serving entry
-    points. Returns (launches per kernel, timing inputs)."""
+    points, its kernel launches counted in a `KernelCounts` of its own.
+    Returns (launches per kernel, timing inputs)."""
     from repro_torch import configs
+    from repro_torch.kernels.counts import KernelCounts
     from repro_torch.models import PREFILL_32K, cast_params, init, n_params
     from repro_torch.models.ssm import ssd_chunked
     from repro_torch.models.transformer import flash_mha
@@ -1532,7 +1578,7 @@ def phase_model_path(fa_ops, ssd_ops, gmm_ops):
     long_toks = torch.from_numpy(rng.integers(
         0, cfg.vocab, (LONG_BATCH, PREFILL_32K.seq_len))).to(dev)
 
-    reset_counts((fa_ops, ssd_ops, gmm_ops))
+    counts = KernelCounts()                     # every count 0 just before
     # -- the algorithm at full width and depth, in f32 (no TF32): kernel path
     # vs plain path on the 8 prompts, each kernel call also held in situ
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1540,11 +1586,13 @@ def phase_model_path(fa_ops, ssd_ops, gmm_ops):
     cfg32 = cfg.replace(dtype="float32")
     # f32 tolerances of model_kernel_check
     with InSituCheck(fa_ops, ssd_ops, 1e-5, 1e-5, 1e-4) as in_situ32:
-        l32k = make_prefill_step(cfg32, use_kernel=True)(params32, prompts)
-    l32p = make_prefill_step(cfg32, use_kernel=False)(params32, prompts)
+        l32k = make_prefill_step(cfg32, use_kernel=True,
+                                 counts=counts)(params32, prompts)
+    l32p = make_prefill_step(cfg32, use_kernel=False,
+                             counts=counts)(params32, prompts)
     torch.cuda.synchronize()
-    assert fa_ops.launch_count() == per_fwd_fa, fa_ops.launch_count()
-    assert ssd_ops.launch_count() == per_fwd_ssd, ssd_ops.launch_count()
+    assert counts == KernelCounts(flash_attention=per_fwd_fa,
+                                  ssd=per_fwd_ssd), counts
     assert in_situ32.calls == {"flash_attention": per_fwd_fa,
                                "ssd": per_fwd_ssd}, in_situ32.calls
     assert bool(torch.isfinite(l32k).all()) and bool(torch.isfinite(l32p).all())
@@ -1552,10 +1600,10 @@ def phase_model_path(fa_ops, ssd_ops, gmm_ops):
     assert agree32 >= MIN_ARGMAX_AGREEMENT, agree32
     # -- decode in f32: serve steps held against the f32 prefill
     dec_diff32, dec_scale32, dec_agree32 = hold_decode_against_prefill(
-        cfg32, params32, prompts, l32p)
+        cfg32, params32, prompts, l32p, counts)
     del l32k, l32p
-    assert fa_ops.launch_count() == per_fwd_fa       # no kernel in decode
-    assert ssd_ops.launch_count() == per_fwd_ssd
+    assert counts == KernelCounts(flash_attention=per_fwd_fa,   # no kernel
+                                  ssd=per_fwd_ssd), counts      # in decode
     t0 = time.perf_counter()
     params = cast_params(params32, cfg)     # once, as a server would
     del params32
@@ -1563,8 +1611,8 @@ def phase_model_path(fa_ops, ssd_ops, gmm_ops):
     cast_s = time.perf_counter() - t0
 
     # -- the served dtype, bf16: prefill of the 8 requests -------------------
-    prefill_k = make_prefill_step(cfg, use_kernel=True)
-    prefill_p = make_prefill_step(cfg, use_kernel=False)
+    prefill_k = make_prefill_step(cfg, use_kernel=True, counts=counts)
+    prefill_p = make_prefill_step(cfg, use_kernel=False, counts=counts)
     t0 = time.perf_counter()
     logits_k = prefill_k(params, prompts)
     torch.cuda.synchronize()
@@ -1584,10 +1632,11 @@ def phase_model_path(fa_ops, ssd_ops, gmm_ops):
     # the same plain function with another chunk length (equal in exact
     # arithmetic): how far bf16 rounding alone moves the logits
     logits_p2 = make_prefill_step(cfg.replace(ssm_chunk=cfg.ssm_chunk // 2),
-                                  use_kernel=False)(params, prompts)
+                                  use_kernel=False,
+                                  counts=counts)(params, prompts)
     torch.cuda.synchronize()
-    assert fa_ops.launch_count() == 4 * per_fwd_fa
-    assert ssd_ops.launch_count() == 4 * per_fwd_ssd
+    assert counts == KernelCounts(flash_attention=4 * per_fwd_fa,
+                                  ssd=4 * per_fwd_ssd), counts
     assert logits_k.shape == (N_REQUESTS, PROMPT_LEN, cfg.vocab)
     assert all(bool(torch.isfinite(t).all())
                for t in (logits_k, logits_p, logits_p2))
@@ -1597,10 +1646,10 @@ def phase_model_path(fa_ops, ssd_ops, gmm_ops):
     del logits_k, logits_p, logits_p2
 
     # -- serve: teacher-forced steps over each prompt, then greedy tokens -----
-    served = serve_requests(cfg, params, prompts, last_prefill)
+    served = serve_requests(cfg, params, prompts, last_prefill, counts)
     # no kernel on the decode path, as in the reference
-    assert fa_ops.launch_count() == 4 * per_fwd_fa
-    assert ssd_ops.launch_count() == 4 * per_fwd_ssd
+    assert counts == KernelCounts(flash_attention=4 * per_fwd_fa,
+                                  ssd=4 * per_fwd_ssd), counts
 
     # -- one long prefill: prefill_32k's length, batch cut from 32 to 1 -------
     # first with every kernel call held in situ against the model's own
@@ -1625,11 +1674,10 @@ def phase_model_path(fa_ops, ssd_ops, gmm_ops):
     assert logits_long.shape == (LONG_BATCH, PREFILL_32K.seq_len, cfg.vocab)
     assert bool(torch.isfinite(logits_long).all())
     del logits_long
-    launches = {"flash_attention": fa_ops.launch_count(),
-                "ssd": ssd_ops.launch_count()}
-    assert launches == {"flash_attention": 6 * per_fwd_fa,
-                        "ssd": 6 * per_fwd_ssd}, launches
-    assert gmm_ops.launch_count() == 0
+    assert counts == KernelCounts(flash_attention=6 * per_fwd_fa,
+                                  ssd=6 * per_fwd_ssd), counts
+    launches = {"flash_attention": counts.flash_attention,
+                "ssd": counts.ssd}
     # the long prefill's first K2 and K3 calls again, inputs cast to f32,
     # at the f32 tolerances (after the counts: comparison launches); K3's
     # plain version here is the sequential recurrence (~5 s at 32768)
@@ -1719,10 +1767,10 @@ def plain_kernel_versions(fa_ops, gmm_ops):
     launch nothing and count nothing."""
     fa, gmm = fa_ops.flash_attention, gmm_ops.expert_ffn
     fa_ops.flash_attention = lambda q, k, v, *, causal=True, window=0, \
-        use_kernel: fa(q, k, v, causal=causal, window=window,
-                       use_kernel=False)
-    gmm_ops.expert_ffn = lambda x, wg, wu, wd, *, use_kernel: gmm(
-        x, wg, wu, wd, use_kernel=False)
+        use_kernel, counts=None: fa(q, k, v, causal=causal, window=window,
+                                    use_kernel=False)
+    gmm_ops.expert_ffn = lambda x, wg, wu, wd, *, use_kernel, counts=None: \
+        gmm(x, wg, wu, wd, use_kernel=False)
     try:
         yield
     finally:
@@ -1734,9 +1782,11 @@ def phase_moe_path(fa_ops, ssd_ops, gmm_ops):
     serving entry points: a 2-layer f32 copy (kernel vs plain path, f32
     serve steps vs the f32 prefill), then the bf16 model serving 8
     requests and one 32768-token prefill, every K2 and K4 call of one
-    forward per shape held in situ. Returns (launches per kernel, the
-    shapes the kernels met)."""
+    forward per shape held in situ; its kernel launches counted in a
+    `KernelCounts` of its own. Returns (launches per kernel, the shapes
+    the kernels met)."""
     from repro_torch import configs
+    from repro_torch.kernels.counts import KernelCounts
     from repro_torch.models import PREFILL_32K, init, n_params, padded_vocab
     from repro_torch.kernels.moe_gmm.ref import expert_ffn_ref
     from repro_torch.models.moe import capacity, expert_ffn_einsum
@@ -1754,12 +1804,12 @@ def phase_moe_path(fa_ops, ssd_ops, gmm_ops):
     long_toks = torch.from_numpy(rng.integers(
         0, cfg.vocab, (LONG_BATCH, PREFILL_32K.seq_len))).to(dev)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts((fa_ops, ssd_ops, gmm_ops))
+    launched = KernelCounts()                   # every count 0 just before
     L, L32 = cfg.n_layers, MOE_F32_LAYERS
 
     def counts():
-        return {"flash_attention": fa_ops.launch_count(),
-                "moe_gmm": gmm_ops.launch_count()}
+        return {"flash_attention": launched.flash_attention,
+                "moe_gmm": launched.moe_gmm}
 
     # -- f32 (no TF32), 2 layers at full width: kernel path vs plain path on
     # the 8 prompts, every kernel call held in situ; then f32 serve steps
@@ -1776,8 +1826,10 @@ def phase_moe_path(fa_ops, ssd_ops, gmm_ops):
         *(t.double() for t in (x, wg, wu, wd)))}
     with InSituCheck(fa_ops, ssd_ops, 1e-5, 1e-5, 1e-4, plain=f64_plain,
                      gmm_ops=gmm_ops, gmm_tol=1e-5) as in_situ32:
-        l32k = make_prefill_step(cfg32, use_kernel=True)(p32, prompts)
-    l32p = make_prefill_step(cfg32, use_kernel=False)(p32, prompts)
+        l32k = make_prefill_step(cfg32, use_kernel=True,
+                                 counts=launched)(p32, prompts)
+    l32p = make_prefill_step(cfg32, use_kernel=False,
+                             counts=launched)(p32, prompts)
     torch.cuda.synchronize()
     assert in_situ32.calls == {"flash_attention": L32, "ssd": 0,
                                "moe_gmm": L32}, in_situ32.calls
@@ -1786,7 +1838,7 @@ def phase_moe_path(fa_ops, ssd_ops, gmm_ops):
     diff32, agree32 = agreement(l32k, l32p)
     assert agree32 >= MIN_ARGMAX_AGREEMENT, agree32
     dec_diff32, dec_scale32, dec_agree32 = hold_decode_against_prefill(
-        cfg32, p32, prompts, l32p)
+        cfg32, p32, prompts, l32p, launched)
     # K4 in every decode step, K2 in none
     f32_counts = {"flash_attention": L32,
                   "moe_gmm": L32 + DECODE_CHECK_LEN * L32}
@@ -1802,8 +1854,8 @@ def phase_moe_path(fa_ops, ssd_ops, gmm_ops):
     init_s = time.perf_counter() - t0
     n = sum(t.numel() for t in _leaves(params))
     assert n == n_params(cfg), (n, n_params(cfg))
-    prefill_k = make_prefill_step(cfg, use_kernel=True)
-    prefill_p = make_prefill_step(cfg, use_kernel=False)
+    prefill_k = make_prefill_step(cfg, use_kernel=True, counts=launched)
+    prefill_p = make_prefill_step(cfg, use_kernel=False, counts=launched)
     t0 = time.perf_counter()
     logits_k = prefill_k(params, prompts)
     torch.cuda.synchronize()
@@ -1837,7 +1889,7 @@ def phase_moe_path(fa_ops, ssd_ops, gmm_ops):
     del logits_k, logits_p, logits_w
 
     # -- serve: teacher-forced steps over each prompt, then greedy tokens -----
-    served = serve_requests(cfg, params, prompts, last_prefill)
+    served = serve_requests(cfg, params, prompts, last_prefill, launched)
     steps = served["serve_steps"]
     expect["moe_gmm"] += steps * L            # K4 in every decode step
     assert counts() == expect, (counts(), expect)
@@ -1869,7 +1921,7 @@ def phase_moe_path(fa_ops, ssd_ops, gmm_ops):
     expect = {k: v + 2 * L for k, v in expect.items()}
     launches = counts()
     assert launches == expect, (launches, expect)
-    assert ssd_ops.launch_count() == 0
+    assert launched.ssd == 0
     peak = torch.cuda.max_memory_allocated()
     E = cfg.n_experts
     emit({"phase": "moe_path", "model": MOE_MODEL, "n_params": n,
@@ -1949,6 +2001,292 @@ def phase_moe_path(fa_ops, ssd_ops, gmm_ops):
                         cfg.n_kv_heads, cfg.head_dim, cfg.window),
                "request": (N_REQUESTS, PROMPT_LEN, cfg.n_heads,
                            cfg.n_kv_heads, cfg.head_dim, cfg.window)}}
+
+
+def kernel_class(name: str) -> str:
+    """The class a CUDA kernel's name puts it in, for a step's breakdown."""
+    low = name.lower()
+    if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+        return "gemm"
+    for w in ("memcpy", "memset", "elementwise", "reduce", "softmax"):
+        if w in low:
+            return w
+    return "other"
+
+
+def profile_step(run) -> dict:
+    """``run()`` once under `torch.profiler`: the wall (host clock after
+    `synchronize`), the device's busy time (CUDA kernels and copies, one
+    stream, so they do not overlap) and its share of the wall, device
+    time by `kernel_class`, and the kernels that took the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == DeviceType.CUDA]
+    by_class: dict = {}
+    for a in kernels:
+        c = kernel_class(a.key)
+        by_class[c] = by_class.get(c, 0.0) + a.self_device_time_total / 1e3
+    busy_ms = sum(by_class.values())
+    if busy_ms == 0:
+        return {"wall_ms": wall_ms,
+                "device": "not measured: the profiler recorded no device time"}
+    top = sorted(kernels, key=lambda a: -a.self_device_time_total)[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms, "by_class_ms": by_class,
+            "top": [{"name": a.key[:96], "calls": a.count,
+                     "ms": a.self_device_time_total / 1e3} for a in top]}
+
+
+def phase_train_path():
+    """The training path on the card: (a) granite-3-2b at full width and
+    depth, TRAIN_STEPS steps on one fixed batch (loss and grad norm
+    finite every step, the grad norm > 0, the mean loss of the last 3
+    steps below the first step's, no K2-K4 launch), then one step under
+    the profiler; (b) one f32 step on
+    the card against the same step on the CPU, depth cut to 2 (loss rtol
+    1e-5, grad norm rtol 1e-4, updated parameters atol 1e-6 + 1e-3 x lr,
+    TF32 off); (c) `train_loop` at depth 2 with a predictor-planned
+    checkpoint store and an injected fault: the plan's sweep through K1
+    with no fallback, its winner equal to K1's plain version on the card,
+    the restored state `torch.equal` to the state saved at step 4, the
+    run ending at step 8 with its manifest. Returns K1's launches (the
+    plan's) counted in the default session's CacheStats."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import TPU_POD_STAGING, default_session
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels.counts import KernelCounts
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import init, n_params
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.train import step as step_mod
+    from repro_torch.tree import tree_leaves, tree_map, tree_paths
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    full = configs.get(TRAIN_MODEL)
+    shape = ShapeConfig("train_path", TRAIN_SEQ, TRAIN_BATCH, "train")
+
+    def to_dev(b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    # -- (a) full width and depth, f32 parameters, bf16 compute, remat ------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init(torch.Generator(device=dev).manual_seed(SEED), full,
+                  device=dev)
+    state = TrainState(params=params, opt=adamw.init(params))
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in tree_leaves(state.params))
+    assert n == n_params(full), (n, n_params(full))
+    batch = to_dev(DataPipeline(full, shape, TRAIN_SHARDS,
+                                seed=SEED).next_batch())
+    opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                            total_steps=TRAIN_STEPS)
+    counts = KernelCounts()                     # every count 0 just before
+    step = make_train_step(full, opt, counts=counts)
+    # the update's CUDA events, recorded around `adamw.update` as the train
+    # step calls it: forward+backward is the time from the step's start
+    update_events = []
+    update = adamw.update
+
+    def timed_update(*args, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = update(*args, **kw)
+        e1.record()
+        update_events.append((e0, e1))
+        return out
+
+    steps = []
+    step_mod.adamw.update = timed_update
+    try:
+        for i in range(TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            e0, e1 = update_events[-1]
+            steps.append({"step": i + 1, "ms": wall * 1e3,
+                          "fwd_bwd_ms": start.elapsed_time(e0),
+                          "update_ms": e0.elapsed_time(e1),
+                          "loss": float(m["loss"]),
+                          "grad_norm": float(m["grad_norm"]),
+                          "lr": float(m["lr"]),
+                          "accuracy": float(m["accuracy"])})
+    finally:
+        step_mod.adamw.update = update
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in steps]
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               and r["grad_norm"] > 0 for r in steps), steps
+    assert sum(losses[-3:]) / 3 < losses[0], losses
+    # one step more, under the profiler: where the step's device time goes
+    profiled = profile_step(lambda: step(state, batch))
+    assert counts == KernelCounts(), counts     # training runs no kernel
+    steady = steps[1:]
+    step_ms = sum(r["ms"] for r in steady) / len(steady)
+    del state, batch, m
+    torch.cuda.empty_cache()
+
+    # -- (b) the card against the CPU, one f32 step at depth 2 --------------
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    cut32 = full.replace(n_layers=TRAIN_CUT_LAYERS, dtype="float32")
+    p_cpu = init(torch.Generator().manual_seed(SEED), cut32, device="cpu")
+    p_dev = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+    b_cpu = {k: torch.from_numpy(v) for k, v in DataPipeline(
+        cut32, ShapeConfig("parity", PARITY_SEQ, PARITY_BATCH, "train"), 1,
+        seed=SEED).next_batch().items()}
+    counts_b = KernelCounts()
+    step_b = make_train_step(cut32, adamw.AdamWConfig(), counts=counts_b)
+    t0 = time.perf_counter()
+    s_dev, m_dev = step_b(TrainState(p_dev, adamw.init(p_dev)),
+                          tree_map(lambda t: t.to(dev), b_cpu))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_cpu, m_cpu = step_b(TrainState(p_cpu, adamw.init(p_cpu)), b_cpu)
+    cpu_s = time.perf_counter() - t0
+    assert counts_b == KernelCounts(), counts_b
+    lr_b = float(m_cpu["lr"])
+    loss_rel = abs(float(m_dev["loss"]) / float(m_cpu["loss"]) - 1)
+    gnorm_rel = abs(float(m_dev["grad_norm"]) / float(m_cpu["grad_norm"]) - 1)
+    p_tol = 1e-6 + 1e-3 * lr_b
+    p_err, over = 0.0, 0
+    for (k, a), (_, b) in zip(tree_paths(s_dev.params),
+                              tree_paths(s_cpu.params)):
+        d = (a.cpu() - b).abs()
+        p_err = max(p_err, float(d.max()))
+        over += int((d > p_tol).sum())
+    assert loss_rel <= 1e-5, (float(m_dev["loss"]), float(m_cpu["loss"]))
+    assert gnorm_rel <= 1e-4, (float(m_dev["grad_norm"]),
+                               float(m_cpu["grad_norm"]))
+    assert p_err <= p_tol, (p_err, p_tol, over)
+    n_cut = n_params(cut32)
+    del p_cpu, p_dev, s_dev, s_cpu
+    torch.cuda.empty_cache()
+
+    # -- (c) the driver: planned checkpoints, a fault, a restore ------------
+    train_dir = BUILD_DIR / "train"
+    shutil.rmtree(train_dir, ignore_errors=True)
+    sess = default_session()
+    sess.stats.reset()                          # K1's count: 0 just before
+    saved, restored = {}, []
+    save, restore = CheckpointManager.save, CheckpointManager.restore
+
+    def kept_save(self, st, at):
+        if at == DRIVER_CKPT_EVERY:
+            saved[at] = tree_map(lambda t: t.detach().clone(), st)
+        return save(self, st, at)
+
+    def kept_restore(self, like, *args, **kw):
+        st, at = restore(self, like, *args, **kw)
+        # a copy: the steps after the restore update the state in place
+        restored.append((tree_map(lambda t: t.detach().clone(), st), at))
+        return st, at
+
+    CheckpointManager.save, CheckpointManager.restore = kept_save, kept_restore
+    try:
+        rep = train_loop(TRAIN_MODEL, steps=DRIVER_STEPS, reduced=False,
+                         n_layers=TRAIN_CUT_LAYERS, ckpt_dir=str(train_dir),
+                         ckpt_every=DRIVER_CKPT_EVERY, seq_len=TRAIN_SEQ,
+                         batch=TRAIN_BATCH, n_shards=TRAIN_SHARDS,
+                         fail_at=DRIVER_FAIL_AT, seed=SEED,
+                         log_every=DRIVER_STEPS, device="cuda")
+    finally:
+        CheckpointManager.save = save
+        CheckpointManager.restore = restore
+    stats = sess.stats
+    launches = stats.kernel_launches
+    assert launches > 0, "the checkpoint plan took no kernel"
+    assert stats.kernel_fallbacks == 0, "a plan bucket fell back"
+    plan = rep["plan"]
+    hold_plan_winner(sess, plan, rep["state_bytes"], TRAIN_SHARDS + 1,
+                     TPU_POD_STAGING)
+    (got, at), = restored
+    assert at == DRIVER_CKPT_EVERY, at
+    pairs = list(zip(tree_paths(got), tree_paths(saved[at])))
+    assert len(pairs) == len(tree_paths(saved[at]))
+    assert all(k == q and torch.equal(a, b) for (k, a), (q, b) in pairs), \
+        "the restored state differs from the saved one"
+    assert rep["final_step"] == DRIVER_STEPS
+    assert (train_dir / f"manifest_{DRIVER_STEPS:08d}.json").exists()
+    assert all(math.isfinite(x) for x in rep["losses"])
+    del got, saved, restored, pairs
+    shutil.rmtree(train_dir)
+    torch.cuda.empty_cache()
+
+    emit({"phase": "train_path", "model": TRAIN_MODEL,
+          "full": {"n_params": n, "n_layers": full.n_layers,
+                   "d_model": full.d_model, "d_ff": full.d_ff,
+                   "vocab": full.vocab, "param_dtype": full.param_dtype,
+                   "dtype": full.dtype, "remat": True,
+                   "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+                   "data": f"DataPipeline({TRAIN_SHARDS} shards, seed "
+                           f"{SEED}), one fixed batch",
+                   "opt": dataclasses.asdict(opt), "init_s": init_s,
+                   "steps": steps, "step_ms_steady": step_ms,
+                   "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+                   "fwd_bwd_ms_steady": sum(r["fwd_bwd_ms"] for r in steady)
+                   / len(steady),
+                   "update_ms_steady": sum(r["update_ms"] for r in steady)
+                   / len(steady),
+                   "loss_first": losses[0],
+                   "loss_last3_mean": sum(losses[-3:]) / 3,
+                   "kernel_launches": dataclasses.asdict(counts),
+                   "peak_device_bytes": peak, "profiled_step": profiled},
+          "card_vs_cpu": {"n_layers": TRAIN_CUT_LAYERS, "n_params": n_cut,
+                          "dtype": "float32", "batch": PARITY_BATCH,
+                          "seq_len": PARITY_SEQ, "tf32": False,
+                          "lr": lr_b, "card_s": card_s, "cpu_s": cpu_s,
+                          "loss": [float(m_dev["loss"]),
+                                   float(m_cpu["loss"])],
+                          "loss_rel_err": loss_rel, "loss_rtol": 1e-5,
+                          "grad_norm": [float(m_dev["grad_norm"]),
+                                        float(m_cpu["grad_norm"])],
+                          "grad_norm_rel_err": gnorm_rel,
+                          "grad_norm_rtol": 1e-4,
+                          "param_max_abs_err": p_err, "param_atol": p_tol,
+                          "params_over_atol": over},
+          "driver": {"n_layers": TRAIN_CUT_LAYERS,
+                     "steps": DRIVER_STEPS, "ckpt_every": DRIVER_CKPT_EVERY,
+                     "fail_at": DRIVER_FAIL_AT,
+                     "state_bytes": rep["state_bytes"],
+                     "plan_s": rep["plan_s"],
+                     "plan": {"stripe_width": plan.config.stripe_width,
+                              "chunk_mb": plan.config.chunk_size / (1 << 20),
+                              "replication": plan.config.replication,
+                              "local_placement": plan.local_placement,
+                              "predicted_write_s": plan.predicted_write_s,
+                              "predicted_restore_s":
+                                  plan.predicted_restore_s,
+                              "candidates": len(plan.table),
+                              "winner_plain_equal": True},
+                     "checkpoints": rep["checkpoints"],
+                     "restores": rep["restores"],
+                     "restored_equal_saved": True,
+                     "final_step": rep["final_step"],
+                     "losses": rep["losses"], "wall_s": rep["wall_s"]},
+          "kernel_launches": launches,
+          "kernel_fallbacks": stats.kernel_fallbacks,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 def _leaves(tree):
@@ -2314,12 +2652,10 @@ def main() -> int:
     max_abs_err = phase_kernel_check(ops_mod, kernel_mod)
     model_worst = phase_model_kernel_check(fa_ops, ssd_ops, gmm_ops)
     # each path is driven with every launch count at 0 just before it
-    # (K1 counts in its session's CacheStats, which each path resets)
-    reset_counts((fa_ops, ssd_ops, gmm_ops))
+    # (K1 counts in its session's CacheStats, which each path resets; K2-K4
+    # in a KernelCounts each model path makes for itself)
     scan_launches = {}
     scan_launches["main_path"], timing, warm = phase_main_path(core)
-    assert (fa_ops.launch_count(), ssd_ops.launch_count(),
-            gmm_ops.launch_count()) == (0, 0, 0)
     scan_launches["backends_path"] = phase_backends_path(core, warm)
     scan_launches["advisor_path"] = phase_advisor_path(core, warm)
     del warm
@@ -2328,6 +2664,7 @@ def main() -> int:
     phase_exact_path(core)
     model_launches, model_shapes = phase_model_path(fa_ops, ssd_ops, gmm_ops)
     moe_launches, moe_shapes = phase_moe_path(fa_ops, ssd_ops, gmm_ops)
+    scan_launches["train_path"] = phase_train_path()
     # K2 runs on both serving paths: its launches are the two counts
     by_path = {"model_path": model_launches["flash_attention"],
                "moe_path": moe_launches["flash_attention"]}

@@ -5,5 +5,5 @@
 kernel (`csrc/flash_attention.cu`, built and bound by `kernel.py`); on a
 CPU tensor it runs the plain PyTorch version in `ref.py`.
 """
-from .ops import flash_attention, launch_count, reset_launch_count  # noqa: F401
+from .ops import flash_attention  # noqa: F401
 from .ref import attention_ref                                     # noqa: F401

@@ -1,13 +1,14 @@
-"""Public wrapper: the model layout, dispatch between the CUDA kernel and
-the plain PyTorch version, and a launch counter.
+"""Public wrapper: the model layout, and dispatch between the CUDA kernel
+and the plain PyTorch version.
 
 `flash_attention` is what the model's prefill attention runs through
 with ``use_kernel=True``. The plain version is taken for one reason
 only besides an explicit ``use_kernel=False``: the tensors lie on the
 CPU. For CUDA tensors with ``use_kernel=True`` the kernel is launched or
-the call raises; there is no fallback. Every launch adds one to a plain
-integer (`launch_count`), so a run can show that it went through the
-kernel.
+the call raises; there is no fallback. Every launch adds one to
+``counts.flash_attention`` when the caller hands in ``counts`` (a
+`kernels.counts.KernelCounts`), so a run can show that it went through
+the kernel; the module keeps no state of its own.
 """
 from __future__ import annotations
 
@@ -16,22 +17,10 @@ import torch
 from . import kernel as _kernel
 from .ref import attention_ref
 
-_launches = 0
-
-
-def launch_count() -> int:
-    """Kernel launches made through `flash_attention` since the last reset."""
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
-
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    use_kernel: bool) -> torch.Tensor:
+                    use_kernel: bool, counts=None) -> torch.Tensor:
     """q: [B, Sq, H, hd]; k, v: [B, Skv, K, hd] -> [B, Sq, H, hd].
 
     GQA: q head h reads kv head h // (H // K); K/V are never expanded on
@@ -45,7 +34,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             v.transpose(1, 2).reshape(B * K, Skv, hd),
                             causal=causal, window=window)
         return out.reshape(B, H, Sq, hd).transpose(1, 2)
-    global _launches
     out = _kernel.flash_attention_cuda(q, k, v, window=window)
-    _launches += 1
+    if counts is not None:
+        counts.flash_attention += 1
     return out

@@ -6,5 +6,5 @@ hand-written Hopper kernel (`csrc/moe_gmm.cu`, built and bound by
 `kernel.py`); on a CPU tensor it runs the plain PyTorch version in
 `ref.py`.
 """
-from .ops import expert_ffn, launch_count, reset_launch_count  # noqa: F401
+from .ops import expert_ffn  # noqa: F401
 from .ref import expert_ffn_ref                                # noqa: F401

@@ -6,5 +6,5 @@ hand-written Hopper kernel (`csrc/ssd.cu`, built and bound by
 `kernel.py`); on a CPU tensor it runs the plain PyTorch version in
 `ref.py`, the sequential recurrence.
 """
-from .ops import launch_count, reset_launch_count, ssd  # noqa: F401
+from .ops import ssd  # noqa: F401
 from .ref import ssd_ref                                # noqa: F401

@@ -15,16 +15,23 @@ hybrid (zamba2)     : groups of Mamba2 blocks with ONE shared attention+MLP
 
 Parameters are nested dicts of tensors with layers stacked on a leading
 axis, as in the reference; the reference's `lax.scan` over layers is a
-Python loop over that axis here. `loss_fn`, rematerialisation and the
-``unroll`` switch belong to the training slice and are not ported yet.
-The reference's `repro.parallel.sharding.constrain_*` calls are no-ops
-without a device mesh and are left out (ROADMAP Queue A item 12).
+Python loop over that axis here (each stacked leaf is split once with
+`torch.unbind`, whose backward stacks the per-layer gradients in one
+step), so the reference's ``unroll`` switch has nothing to select and is
+left out. ``remat=True`` wraps each layer body (each group body for the
+hybrid, as the reference checkpoints ``group_body``) in
+`torch.utils.checkpoint.checkpoint` with ``use_reentrant=False``, the
+counterpart of `jax.checkpoint`. The reference's
+`repro.parallel.sharding.constrain_*` calls and `_constrain_logits` are
+sharding constraints that do nothing without a device mesh and are left
+out (ROADMAP Queue A item 12).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..env import DeviceLike, resolve_device
 from .config import ArchConfig
@@ -170,52 +177,74 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int) -> List:
+    """A tree stacked on a leading axis of length ``n`` as ``n`` trees of
+    views (`torch.unbind` per leaf)."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def forward(params, tokens_or_embeds: torch.Tensor, cfg: ArchConfig, *,
-            use_kernel: bool = False) -> torch.Tensor:
-    """Prefill forward -> logits [B, S, vocab_padded]. With
+            use_kernel: bool = False, remat: bool = True,
+            counts=None) -> torch.Tensor:
+    """Train/prefill forward -> logits [B, S, vocab_padded]. With
     ``use_kernel=True`` every attention block runs the flash-attention
     kernel, every Mamba2 block the SSD kernel and every MoE block the
     grouped expert-FFN kernel (on CUDA tensors; on CPU tensors their
-    plain versions)."""
+    plain versions); the kernels have no backward pass, so a forward
+    that is to be differentiated takes ``use_kernel=False``. ``counts``
+    (a `kernels.counts.KernelCounts`) receives the kernel launches.
+    ``remat`` recomputes each layer (hybrid: each group) in the backward
+    pass instead of keeping its activations."""
     _check_family(cfg)
     params = cast_params(params, cfg)
     x = _embed(params, tokens_or_embeds, cfg)
+    kw = dict(use_kernel=use_kernel, counts=counts)
+
+    def attn_body(y, p_layer):
+        return block_apply(p_layer, y, cfg, **kw)[0]
+
+    def ssm_body(y, p_layer):
+        return ssm_block_apply(p_layer, y, cfg, **kw)[0]
+
+    def group_body(y, p_group):
+        for p_layer in _unstack(p_group, cfg.shared_attn_every):
+            y = ssm_body(y, p_layer)
+        return attn_body(y, params["shared"])
 
     if cfg.family in ATTN_FAMILIES:
-        for i in range(cfg.n_layers):
-            x, _ = block_apply(_layer(params["blocks"], i), x, cfg,
-                               use_kernel=use_kernel)
+        body, n = attn_body, cfg.n_layers
     elif cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            x, _ = ssm_block_apply(_layer(params["blocks"], i), x, cfg,
-                                   use_kernel=use_kernel)
+        body, n = ssm_body, cfg.n_layers
     else:                                   # hybrid
-        shared = params["shared"]
-        for g in range(cfg.n_layers // cfg.shared_attn_every):
-            p_group = _layer(params["blocks"], g)
-            for j in range(cfg.shared_attn_every):
-                x, _ = ssm_block_apply(_layer(p_group, j), x, cfg,
-                                       use_kernel=use_kernel)
-            x, _ = block_apply(shared, x, cfg, use_kernel=use_kernel)
+        body, n = group_body, cfg.n_layers // cfg.shared_attn_every
+    for p_layer in _unstack(params["blocks"], n):
+        if remat:
+            x = checkpoint(body, x, p_layer, use_reentrant=False)
+        else:
+            x = body(x, p_layer)
 
     return _head(params, x, cfg)
 
 
-def _ssm_step(p_layer, x, cfg, h, conv, use_kernel):
+def _ssm_step(p_layer, x, cfg, h, conv, use_kernel, counts):
     """One Mamba2 block in decode; its state tensors are updated in place."""
     x, new = ssm_block_apply(p_layer, x, cfg, state=SSMState(h, conv),
-                             use_kernel=use_kernel)
+                             use_kernel=use_kernel, counts=counts)
     h.copy_(new.h)
     conv.copy_(new.conv)
     return x
 
 
 def decode_step(params, state: DecodeState, tokens: torch.Tensor,
-                cfg: ArchConfig, *, use_kernel: bool = False
+                cfg: ArchConfig, *, use_kernel: bool = False, counts=None
                 ) -> Tuple[torch.Tensor, DecodeState]:
     """One serve step: tokens [B] (or embeds [B, d] for stub frontends)
     -> (logits [B, vocab_padded], new state). The caches of ``state`` are
-    updated in place; the returned state shares them."""
+    updated in place (so decode is never differentiated); the returned
+    state shares them. ``counts`` receives the kernel launches."""
     _check_family(cfg)
     params = cast_params(params, cfg)
     tok = tokens[:, None] if tokens.dim() == 1 else tokens[:, None, :]
@@ -226,22 +255,51 @@ def decode_step(params, state: DecodeState, tokens: torch.Tensor,
         for i in range(cfg.n_layers):
             x, _ = block_apply(_layer(params["blocks"], i), x, cfg,
                                cache=KVCache(kv.k[i], kv.v[i], kv.length),
-                               use_kernel=use_kernel)
+                               use_kernel=use_kernel, counts=counts)
     elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
             x = _ssm_step(_layer(params["blocks"], i), x, cfg, ssm.h[i],
-                          ssm.conv[i], use_kernel)
+                          ssm.conv[i], use_kernel, counts)
     else:                                   # hybrid
         shared = params["shared"]
         for g in range(cfg.n_layers // cfg.shared_attn_every):
             p_group = _layer(params["blocks"], g)
             for j in range(cfg.shared_attn_every):
                 x = _ssm_step(_layer(p_group, j), x, cfg, ssm.h[g, j],
-                              ssm.conv[g, j], use_kernel)
+                              ssm.conv[g, j], use_kernel, counts)
             x, _ = block_apply(shared, x, cfg,
                                cache=KVCache(kv.k[g], kv.v[g], kv.length),
-                               use_kernel=use_kernel)
+                               use_kernel=use_kernel, counts=counts)
 
     new_kv = None if kv is None else KVCache(kv.k, kv.v, kv.length + 1)
     logits = _head(params, x, cfg)[:, 0]
     return logits, DecodeState(kv=new_kv, ssm=ssm, pos=state.pos + 1)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
+            use_kernel: bool = False, remat: bool = True, counts=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy. batch: {tokens|embeds, labels, [mask]}.
+
+    ``logsumexp`` runs over the f32 logits; the label logit is a
+    `gather` of the logits in their own dtype, the value the reference's
+    one-hot contraction gives, without building a [B, S, Vp] one-hot.
+    The loss and the accuracy (the first index among equal logits) are
+    masked by ``mask``. Returns (loss, {"loss", "accuracy", "tokens"}),
+    all 0-d tensors."""
+    inp = batch.get("tokens", batch.get("embeds"))
+    logits = forward(params, inp, cfg, use_kernel=use_kernel, remat=remat,
+                     counts=counts)                 # [B, S, Vp]
+    labels = batch["labels"].long()
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0].float()
+    ll = label_logit - lse
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    loss = -(ll * mask).sum() / denom
+    acc = ((logits.argmax(-1) == labels) * mask).sum() / denom
+    return loss, {"loss": loss, "accuracy": acc,
+                  "tokens": mask.sum()}

@@ -64,9 +64,10 @@ def expert_ffn_einsum(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 
 def moe_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
-              use_kernel: bool = False) -> torch.Tensor:
+              use_kernel: bool = False, counts=None) -> torch.Tensor:
     """x: [B, S, d] -> [B, S, d]. One dispatch group (the reference's
-    ``G = 1`` without a mesh)."""
+    ``G = 1`` without a mesh). The scatter adds in place into a fresh
+    buffer (`index_add_`), which autograd differentiates."""
     B, S, d = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k
@@ -94,7 +95,8 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     if use_kernel:
         from ..kernels.moe_gmm import ops as gmm_ops
         out = gmm_ops.expert_ffn(buf, p["wg"].to(dt), p["wu"].to(dt),
-                                 p["wd"].to(dt), use_kernel=True)
+                                 p["wd"].to(dt), use_kernel=True,
+                                 counts=counts)
     else:
         out = expert_ffn_einsum(buf[None], p["wg"], p["wu"], p["wd"])[0]
 

@@ -120,8 +120,8 @@ def ssd_step(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 def ssm_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
-              state: Optional[SSMState] = None, use_kernel: bool = False
-              ) -> Tuple[torch.Tensor, Optional[SSMState]]:
+              state: Optional[SSMState] = None, use_kernel: bool = False,
+              counts=None) -> Tuple[torch.Tensor, Optional[SSMState]]:
     """Full Mamba2 mixer. x: [B, S, d]. Decode when state is not None (S==1)."""
     B, S, d = x.shape
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
@@ -146,7 +146,7 @@ def ssm_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
             from ..kernels.ssd import ops as ssd_ops
             y, _h = ssd_ops.ssd(xh.contiguous(), dt, a, b.contiguous(),
                                 c.contiguous(), chunk=cfg.ssm_chunk,
-                                use_kernel=True)
+                                use_kernel=True, counts=counts)
         else:
             y, _h = ssd_chunked(xh, dt, a, b, c, chunk=cfg.ssm_chunk)
         new_state = None
@@ -174,7 +174,8 @@ def init_ssm_state(cfg: ArchConfig, batch: int,
 
 
 def ssm_block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
-                    state: Optional[SSMState] = None, use_kernel: bool = False):
+                    state: Optional[SSMState] = None, use_kernel: bool = False,
+                    counts=None):
     h, new_state = ssm_apply(p["ssm"], rms_norm(x, p["ln"], cfg.norm_eps), cfg,
-                             state=state, use_kernel=use_kernel)
+                             state=state, use_kernel=use_kernel, counts=counts)
     return x + h, new_state

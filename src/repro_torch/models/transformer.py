@@ -179,7 +179,7 @@ def _project(x, w, b=None):
 
 def attention(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
               cache: Optional[KVCache] = None,
-              use_kernel: bool = False
+              use_kernel: bool = False, counts=None
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Full attention sub-layer. Prefill when cache is None; decode (x is
     [B, 1, d]) writes the new K/V into the cache IN PLACE (the port keeps
@@ -199,7 +199,8 @@ def attention(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
         if use_kernel:
             from ..kernels.flash_attention import ops as fa_ops
             out = fa_ops.flash_attention(q, k, v, causal=True,
-                                         window=cfg.window, use_kernel=True)
+                                         window=cfg.window, use_kernel=True,
+                                         counts=counts)
         else:
             out = flash_mha(q, k, v, window=cfg.window)
         new_cache = None
@@ -229,14 +230,18 @@ def attention(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
 
 
 def block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
-                cache: Optional[KVCache] = None, use_kernel: bool = False
-                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+                cache: Optional[KVCache] = None, use_kernel: bool = False,
+                counts=None) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """One attention + MLP (or MoE) block; ``counts`` (a
+    `kernels.counts.KernelCounts`) receives the block's kernel launches."""
     h, new_cache = attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
-                             cfg, cache=cache, use_kernel=use_kernel)
+                             cfg, cache=cache, use_kernel=use_kernel,
+                             counts=counts)
     x = x + h
     y = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.uses_moe:
-        x = x + moe_apply(p["moe"], y, cfg, use_kernel=use_kernel)
+        x = x + moe_apply(p["moe"], y, cfg, use_kernel=use_kernel,
+                          counts=counts)
     else:
         x = x + swiglu(y, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"])
     return x, new_cache

@@ -1,4 +1,5 @@
-"""Step functions of the port: the serving steps so far."""
-from .step import make_prefill_step, make_serve_step
+"""Step functions of the port: training and serving."""
+from .step import TrainState, make_prefill_step, make_serve_step, make_train_step
 
-__all__ = ["make_prefill_step", "make_serve_step"]
+__all__ = ["TrainState", "make_prefill_step", "make_serve_step",
+           "make_train_step"]

@@ -189,7 +189,10 @@ def test_import_leaves_jax_and_repro_out():
             "import repro_torch.kernels.moe_gmm.ops\n"
             "import repro_torch.core.trace, repro_torch.core.sysid\n"
             "import repro_torch.obs, repro_torch.serve\n"
-            "import repro_torch.checkpoint\n"
+            "import repro_torch.checkpoint, repro_torch.checkpoint.store\n"
+            "import repro_torch.optim, repro_torch.data, repro_torch.train\n"
+            "import repro_torch.launch.train, repro_torch.launch.elastic\n"
+            "import repro_torch.kernels.counts, repro_torch.tree\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n"
@@ -241,5 +244,8 @@ def test_all_slice_modules_exist():
                 "core/sysid.py", "obs/timeline.py", "obs/export.py",
                 "serve/__init__.py", "serve/request.py",
                 "serve/coalescer.py", "serve/results_cache.py",
-                "serve/server.py", "checkpoint/planner.py"):
+                "serve/server.py", "checkpoint/planner.py",
+                "checkpoint/store.py", "optim/adamw.py", "data/pipeline.py",
+                "launch/train.py", "launch/elastic.py", "kernels/counts.py",
+                "tree.py"):
         assert (pkg / rel).is_file(), rel

@@ -20,6 +20,7 @@ from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro.models.transformer import flash_mha as j_flash_mha
 
+from repro_torch.kernels.counts import KernelCounts
 from repro_torch.kernels.flash_attention import kernel as t_kernel
 from repro_torch.kernels.flash_attention import ops as t_ops
 from repro_torch.models.interop import tensor_from_numpy
@@ -73,9 +74,10 @@ def test_plain_version_matches_reference_kernel_and_oracle(
     jdt, tdt = DTYPES[dtype]
     (jq, jk, jv), (tq, tk, tv) = qkv(B, S, H, K, hd, S + hd, jdt)
     assert tq.dtype == tdt
-    before = t_ops.launch_count()
-    out = t_ops.flash_attention(tq, tk, tv, window=win, use_kernel=True)
-    assert t_ops.launch_count() == before         # CPU tensors: plain version
+    counts = KernelCounts()
+    out = t_ops.flash_attention(tq, tk, tv, window=win, use_kernel=True,
+                                counts=counts)
+    assert counts == KernelCounts()               # CPU tensors: plain version
     assert out.shape == (B, S, H, hd) and out.dtype == tdt
     j_kernel = j_flash(jq, jk, jv, window=win, block_q=bq, block_kv=bkv)
     np.testing.assert_allclose(as_np(out), as_np(j_kernel), **tol(dtype))

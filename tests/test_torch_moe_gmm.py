@@ -12,6 +12,8 @@ with C = 136 (over 128 and no multiple of it, which the reference's
 kernel refuses) is held against the oracle only. Also the wrapper's
 checks and its launch counter.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ import torch
 from repro.kernels.moe_gmm.ops import expert_ffn as j_expert_ffn
 from repro.kernels.moe_gmm.ref import expert_ffn_ref as j_expert_ffn_ref
 
+from repro_torch.kernels.counts import KernelCounts
 from repro_torch.kernels.moe_gmm import kernel as t_kernel
 from repro_torch.kernels.moe_gmm import ops as t_ops
 from repro_torch.kernels.moe_gmm import ref as t_ref
@@ -72,9 +75,10 @@ def test_plain_version_matches_reference_kernel_and_oracle(
     jdt, tdt = DTYPES[dtype]
     (jx, jwg, jwu, jwd), (tx, twg, twu, twd) = inputs(G, E, C, d, f,
                                                       C + d + f, jdt)
-    before = t_ops.launch_count()
-    out = t_ops.expert_ffn(tx, twg, twu, twd, use_kernel=True)
-    assert t_ops.launch_count() == before         # CPU tensors: plain version
+    counts = KernelCounts()
+    out = t_ops.expert_ffn(tx, twg, twu, twd, use_kernel=True,
+                           counts=counts)
+    assert counts == KernelCounts()               # CPU tensors: plain version
     assert out.shape == (G * E, C, d) and out.dtype == tdt
     j_kernel = j_expert_ffn(jx, jwg, jwu, jwd, block_c=bc, block_f=bf)
     np.testing.assert_allclose(as_np(out), as_np(j_kernel), **tol(dtype))
@@ -142,5 +146,10 @@ def test_plain_version_in_f64_is_the_exact_oracle():
 
 
 def test_launch_counter_resets():
-    t_ops.reset_launch_count()
-    assert t_ops.launch_count() == 0
+    """The launch counts are the caller's: a new `KernelCounts` (the
+    reset) has every field at 0, and the kernel package keeps no counter
+    of its own to reset."""
+    assert dataclasses.asdict(KernelCounts()) == {
+        "flash_attention": 0, "ssd": 0, "moe_gmm": 0}
+    assert not hasattr(t_ops, "launch_count")
+    assert not hasattr(t_ops, "reset_launch_count")

@@ -5,8 +5,11 @@ mutable containers and on `global` statements in the sweep stack. Here
 it runs on the port's counterparts of its default roots — the sweep
 stack, the sweep-scan kernel package, `obs`, `serve` — plus the top of
 `repro_torch/kernels` (`build.py`, which every kernel launch loads its
-library through), and must exit 0: K1's launch count lives in the
-session's `CacheStats`, and loaded libraries in a memoised function.
+library through, and `counts.py`), the other three kernel packages and
+the training path (`models`, `train`, `optim`, `data`, `checkpoint`,
+`launch`), and must exit 0: K1's launch count lives in the session's
+`CacheStats`, K2-K4's in the `KernelCounts` their caller hands in, and
+loaded libraries in a memoised function.
 A copy of the kernel package with a module-level counter put back must
 fail the same check, so the check is known to bite on these roots.
 The multi-process module's shared fleet (`_POOLS`) and per-worker
@@ -24,7 +27,11 @@ ROOT = Path(__file__).resolve().parents[1]
 TOOL = ROOT / "tools" / "check_no_global_state.py"
 PORT = ROOT / "src" / "repro_torch"
 ROOTS = [PORT / "core" / "sweep", PORT / "kernels" / "sweep_scan",
-         PORT / "kernels", PORT / "obs", PORT / "serve"]
+         PORT / "kernels", PORT / "obs", PORT / "serve",
+         PORT / "kernels" / "flash_attention", PORT / "kernels" / "ssd",
+         PORT / "kernels" / "moe_gmm", PORT / "models", PORT / "train",
+         PORT / "optim", PORT / "data", PORT / "checkpoint",
+         PORT / "launch"]
 
 
 def run_tool(*roots):

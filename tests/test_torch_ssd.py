@@ -23,6 +23,7 @@ from repro.kernels.ssd.ops import ssd as j_ssd
 from repro.kernels.ssd.ref import ssd_ref as j_ssd_ref
 from repro.models.ssm import ssd_chunked as j_ssd_chunked
 
+from repro_torch.kernels.counts import KernelCounts
 from repro_torch.kernels.ssd import kernel as t_kernel
 from repro_torch.kernels.ssd import ops as t_ops
 from repro_torch.kernels.ssd import ref as t_ref
@@ -84,9 +85,10 @@ def test_plain_version_matches_reference_kernel_and_oracle(B, S, H, P, N,
                                                            chunk, dtype):
     (jx, jdt_, ja, jb, jc), (tx, tdt, ta, tb, tc) = \
         inputs(B, S, H, P, N, S + P + N, DTYPES[dtype])
-    before = t_ops.launch_count()
-    y, h = t_ops.ssd(tx, tdt, ta, tb, tc, chunk=chunk, use_kernel=True)
-    assert t_ops.launch_count() == before         # CPU tensors: plain version
+    counts = KernelCounts()
+    y, h = t_ops.ssd(tx, tdt, ta, tb, tc, chunk=chunk, use_kernel=True,
+                     counts=counts)
+    assert counts == KernelCounts()               # CPU tensors: plain version
     assert y.shape == (B, S, H, P) and y.dtype == tx.dtype
     assert h.shape == (B, H, N, P) and h.dtype == torch.float32
     jy, jh = j_ssd(jx, jdt_, ja, jb, jc, chunk=chunk)
