@@ -121,9 +121,31 @@ line:
                plain version), a fault at step 6, the restored state
                `torch.equal` to the state saved at step 4; plan, write
                and restore seconds, bytes written
+  sharding_path the sharding layer and the dry run: (a) the port's dry
+               run (`python -m repro_torch.launch.dryrun`, one
+               subprocess a cell, all started together, meta tensors
+               over a fake process group of 256 or 512 ranks) for
+               granite-3-2b decode_32k on both production meshes,
+               granite train_4k and zamba2-2.7b decode_32k (mixtral-8x22b
+               prefill_32k, ~2-3 min of tracing, is left to the tests
+               and PERF.md): each report's dominant term, fits_hbm, bytes
+               and collective bytes per device, roofline times and
+               seconds; no cell in error, artifacts current, granite
+               decode_32k on 256 (512) chips fits and is memory-bound;
+               (b) meanwhile, rank 0 of a 256-rank fake process group
+               runs granite's train_4k and decode_32k steps on the card
+               at the 16x16 mesh's per-device shapes, full depth: peak
+               device bytes beside the dry run's bytes_per_device, their
+               fits_hbm agreeing; (c) a (1, 1) NCCL mesh: an f32 train
+               step at depth 2 against the no-mesh step (loss rtol 1e-5,
+               grad norm 1e-4, parameters 1e-6 + 1e-3 lr),
+               `resharded_state` of the stepped state `torch.equal`, a
+               bf16 1 x 512 prefill with flash_attention inside
+               `local_map` (counted) against the no-mesh kernel path
   {"kernels": [...]}  one entry per kernel: launches counted during its
                paths (K1's by path: main_path, backends_path,
-               advisor_path, fixture_sweep, train_path), its time at the path's largest shape beside its
+               advisor_path, fixture_sweep, train_path; K2's: model_path,
+               moe_path, sharding_path), its time at the path's largest shape beside its
                bound, the plain version's time beside the kernel's at a
                shape the plain version can take, and a library call's
                time where one PyTorch call computes the same function
@@ -150,6 +172,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -310,6 +333,25 @@ TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
 TRAIN_CUT_LAYERS = 2
 PARITY_BATCH, PARITY_SEQ = 1, 128
 DRIVER_STEPS, DRIVER_CKPT_EVERY, DRIVER_FAIL_AT = 8, 4, 6
+
+# sharding_path: (a) the port's dry run, `python -m
+# repro_torch.launch.dryrun`, one subprocess a cell, all started together,
+# each owning its fake process group, on the production mesh over meta
+# tensors (no data on the card), while (b) and (c) use the card; (b) rank
+# 0 of the 256-rank fake group runs granite-3-2b's train_4k and decode_32k
+# steps for real, at the 16x16 mesh's per-device shapes, full depth; (c) a
+# real (1, 1) NCCL mesh on the card: one f32 train step at depth 2 on 1 x
+# 128 against the no-mesh step, `resharded_state`, and one 1 x 512 bf16
+# prefill through K2 inside `local_map`. mixtral-8x22b's prefill_32k cell
+# traces 32768-token blocked attention op by op (118-176 s) and would bound
+# the phase, so it is not run here
+DRYRUN_CELLS = (("granite-3-2b", "decode_32k", ("--both-meshes",)),
+                ("granite-3-2b", "train_4k", ()),
+                ("zamba2-2.7b", "decode_32k", ()))
+DRYRUN_TIMEOUT_S = 420
+ONE_RANK_CELLS = ("train_4k", "decode_32k")
+ONE_RANK_STEPS = 2
+MESH_PREFILL = 512
 
 
 def emit(obj) -> None:
@@ -2289,6 +2331,244 @@ def phase_train_path():
     return launches
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_sharding_path():
+    """The sharding layer and the dry run: (a) the dry-run cells of
+    DRYRUN_CELLS, one subprocess each (meta tensors, its own fake process
+    group), seconds to each one's exit:
+    no cell reports an error, the artifact reads as current, granite
+    decode_32k on 256 chips (512 multi-pod) fits and is memory-bound;
+    (b) meanwhile, rank 0 of a 256-rank fake process group runs
+    granite-3-2b's train_4k and decode_32k steps on the card with its
+    shards of the 16x16 mesh, full depth: peak device bytes (above what
+    earlier phases left allocated) beside the dry run's
+    bytes_per_device, and the dry run's fits_hbm must agree
+    with the measured peak below HBM_BYTES (the values that pass through
+    fake collectives are held to nothing); (c) a (1, 1) NCCL mesh: one
+    f32 train step at depth 2 with parameters placed by `param_specs`
+    against the no-mesh step (loss rtol 1e-5, grad norm rtol 1e-4,
+    parameters atol 1e-6 + 1e-3 lr), the stepped state copied to the
+    host and re-placed by `resharded_state` `torch.equal` to it, and one
+    1 x 512 bf16 prefill with K2 inside `local_map` held against the
+    no-mesh kernel path (bf16 2e-2). Returns K2's launches under the
+    mesh (the no-mesh comparison's are not counted)."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.kernels.counts import KernelCounts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.dryrun_meta import HBM_BYTES, unwrap_results
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    full = configs.get(TRAIN_MODEL)
+    shapes = {sh.name: sh for sh in configs.ALL_SHAPES}
+
+    # -- (a) the dry run: one subprocess a cell (meta tensors, no data) -----
+    dr_dir = BUILD_DIR / "dryrun"
+    shutil.rmtree(dr_dir, ignore_errors=True)
+    dr_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t_dr = time.perf_counter()
+    procs, watchers, ended = [], [], {}
+
+    def watch(i, proc):
+        proc.wait()
+        ended[i] = time.perf_counter() - t_dr
+
+    for i, (a, sh, extra) in enumerate(DRYRUN_CELLS):
+        with open(dr_dir / f"{i}.out", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 a, "--shape", sh, "--out", str(dr_dir / f"{i}.json"),
+                 *extra], cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+        watchers.append(threading.Thread(target=watch, args=(i, procs[-1]),
+                                         daemon=True))
+        watchers[-1].start()
+    try:
+        # -- (b) one rank of the production mesh, on the card ---------------
+        one_rank = []
+        with dryrun.fake_world(256):
+            mesh = make_production_mesh()
+            for name in ONE_RANK_CELLS:
+                torch.cuda.empty_cache()
+                # what earlier phases left allocated is not the cell's
+                base = torch.cuda.memory_allocated()
+                cell = dryrun.build_cell(full, shapes[name], mesh,
+                                         device="cuda", counts=KernelCounts())
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                args_bytes = torch.cuda.memory_allocated() - base
+                step_s = []
+                for _ in range(ONE_RANK_STEPS):
+                    t0 = time.perf_counter()
+                    cell.run()
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                one_rank.append({"arch": full.name, "shape": name,
+                                 "mesh": "16x16", "rank": 0,
+                                 "base_device_bytes": base,
+                                 "args_device_bytes": args_bytes,
+                                 "peak_device_bytes":
+                                     torch.cuda.max_memory_allocated() - base,
+                                 "step_s": step_s})
+                del cell
+                torch.cuda.empty_cache()
+
+        # -- (c) a real (1, 1) mesh over NCCL --------------------------------
+        dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                                f"{_free_port()}", rank=0, world_size=1)
+        try:
+            real = _real_mesh_checks(make_host_mesh(), full, dev)
+        finally:
+            dist.destroy_process_group()
+        for proc in procs:
+            proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                  - (time.perf_counter() - t_dr)))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    dr_s = time.perf_counter() - t_dr
+    for w in watchers:
+        w.join(timeout=10)
+    for i, proc in enumerate(procs):
+        assert proc.returncode == 0, (dr_dir / f"{i}.out").read_text()[-4000:]
+
+    # the dry run's reports and their gates
+    reports = []
+    for i in range(len(DRYRUN_CELLS)):
+        got, stale = unwrap_results(json.loads(
+            (dr_dir / f"{i}.json").read_text()))
+        assert not stale, (i, stale)
+        for rep in got:
+            assert "error" not in rep, rep
+            reports.append(dict(rep, seconds=ended[i]))
+    by_cell = {(r["arch"], r["shape"], r["multi_pod"]): r for r in reports}
+    for mp, chips in ((False, 256), (True, 512)):
+        r = by_cell[(TRAIN_MODEL, "decode_32k", mp)]
+        assert r["chips"] == chips and r["fits_hbm"] and \
+            r["dominant"] == "memory", r
+    for row in one_rank:
+        r = by_cell[(TRAIN_MODEL, row["shape"], False)]
+        row["dryrun_bytes_per_device"] = r["bytes_per_device"]
+        row["measured_over_dryrun"] = (row["peak_device_bytes"]
+                                       / r["bytes_per_device"])
+        row["fits_hbm_dryrun"] = r["fits_hbm"]
+        row["fits_hbm_measured"] = (row["base_device_bytes"]
+                                    + row["peak_device_bytes"]) < HBM_BYTES
+        assert row["fits_hbm_dryrun"] == row["fits_hbm_measured"], row
+    keys = ("arch", "shape", "mesh", "chips", "dominant", "fits_hbm",
+            "bytes_per_device", "collective_bytes_per_device",
+            "t_compute_s", "t_memory_s", "t_collective_s", "compile_s",
+            "seconds")
+    shutil.rmtree(dr_dir)
+    emit({"phase": "sharding_path", "hbm_bytes": HBM_BYTES,
+          "total_memory": torch.cuda.get_device_properties(0).total_memory,
+          "dryrun": [{k: r[k] for k in keys} for r in reports],
+          "dryrun_wall_s": dr_s, "one_rank": one_rank, "real_mesh": real,
+          "seconds": time.perf_counter() - t_phase})
+    return real["kernel_launches"]["flash_attention"]
+
+
+def _real_mesh_checks(mesh, full, dev):
+    """(c) of `phase_sharding_path` on a (1, 1) mesh."""
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels.counts import KernelCounts
+    from repro_torch.launch.elastic import resharded_state
+    from repro_torch.models import forward, init
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import data_specs, param_specs, to_shardings
+    from repro_torch.parallel.sharding import distribute
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map, tree_paths
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert tuple(mesh.shape) == (1, 1), mesh
+    cut32 = full.replace(n_layers=TRAIN_CUT_LAYERS, dtype="float32")
+    shape = ShapeConfig("parity", PARITY_SEQ, PARITY_BATCH, "train")
+    params = init(torch.Generator(device=dev).manual_seed(SEED), cut32,
+                  device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in DataPipeline(
+        cut32, shape, 1, seed=SEED).next_batch().items()}
+    ps = param_specs(cut32, mesh)
+    state_specs = lambda m: TrainState(params=param_specs(cut32, m),
+                                       opt=adamw.OptState(mu=ps, nu=ps,
+                                                          count=()))
+    ref = TrainState(tree_map(torch.clone, params), adamw.init(params))
+    placed = resharded_state(TrainState(params, adamw.init(params)), None,
+                             mesh, state_specs)
+    dbatch = tree_map(distribute, batch,
+                      to_shardings(data_specs(cut32, shape, mesh), mesh))
+    counts = KernelCounts()
+    step = make_train_step(cut32, adamw.AdamWConfig(), counts=counts)
+    ref, m_ref = step(ref, batch)
+    t0 = time.perf_counter()
+    placed, m_mesh = step(placed, dbatch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    assert counts == KernelCounts(), counts
+    lr = float(m_ref["lr"])
+    loss = [float(m_mesh["loss"].full_tensor()), float(m_ref["loss"])]
+    gnorm = [float(m_mesh["grad_norm"].full_tensor()),
+             float(m_ref["grad_norm"])]
+    loss_rel, gnorm_rel = abs(loss[0] / loss[1] - 1), abs(gnorm[0] / gnorm[1] - 1)
+    p_tol = 1e-6 + 1e-3 * lr
+    p_err = max(float((a.full_tensor() - b).abs().max()) for a, b in
+                zip(tree_leaves(placed.params), tree_leaves(ref.params)))
+    assert loss_rel <= 1e-5, loss
+    assert gnorm_rel <= 1e-4, gnorm
+    assert p_err <= p_tol, (p_err, p_tol)
+    # the stepped state, copied to the host and placed again
+    host = tree_map(lambda x: x.full_tensor().cpu(), placed)
+    again = resharded_state(host, mesh, mesh, state_specs)
+    pairs = list(zip(tree_paths(again), tree_paths(host)))
+    assert len(pairs) == len(tree_leaves(host))
+    assert all(k == q and torch.equal(a.full_tensor().cpu(), b)
+               for (k, a), (q, b) in pairs), "resharded_state changed a leaf"
+    del ref, placed, host, again, pairs
+    torch.cuda.empty_cache()
+    # K2 under the mesh: a bf16 prefill, the no-mesh kernel path beside
+    cut = full.replace(n_layers=TRAIN_CUT_LAYERS)
+    pb = init(torch.Generator(device=dev).manual_seed(SEED + 1), cut,
+              device=dev)
+    tokens = torch.randint(0, cut.vocab, (1, MESH_PREFILL), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(SEED))
+    want = forward(pb, tokens, cut, use_kernel=True, remat=False,
+                   counts=KernelCounts())
+    counts_m = KernelCounts()                   # every count 0 just before
+    got = forward(resharded_state(pb, None, mesh,
+                                  lambda m: param_specs(cut, m)),
+                  distribute(tokens, to_shardings(
+                      {"t": (("data",), None)}, mesh)["t"]),
+                  cut, use_kernel=True, remat=False, counts=counts_m)
+    assert counts_m == KernelCounts(flash_attention=TRAIN_CUT_LAYERS), \
+        counts_m
+    err = check_close("mesh prefill", got.full_tensor(), want, 2e-2, 2e-2)
+    return {"mesh": list(mesh.shape), "n_layers": TRAIN_CUT_LAYERS,
+            "train_step": {"dtype": "float32", "batch": PARITY_BATCH,
+                           "seq_len": PARITY_SEQ, "step_s": step_s,
+                           "loss": loss, "loss_rel_err": loss_rel,
+                           "grad_norm": gnorm,
+                           "grad_norm_rel_err": gnorm_rel,
+                           "param_max_abs_err": p_err, "param_atol": p_tol},
+            "resharded_equal": True,
+            "prefill": {"dtype": cut.dtype, "batch": 1,
+                        "seq_len": MESH_PREFILL, "max_abs_err": err,
+                        "tol": 2e-2},
+            "kernel_launches": dataclasses.asdict(counts_m)}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2665,9 +2945,12 @@ def main() -> int:
     model_launches, model_shapes = phase_model_path(fa_ops, ssd_ops, gmm_ops)
     moe_launches, moe_shapes = phase_moe_path(fa_ops, ssd_ops, gmm_ops)
     scan_launches["train_path"] = phase_train_path()
-    # K2 runs on both serving paths: its launches are the two counts
+    mesh_k2 = phase_sharding_path()
+    # K2 runs on both serving paths and under the mesh: its launches are
+    # the three counts
     by_path = {"model_path": model_launches["flash_attention"],
-               "moe_path": moe_launches["flash_attention"]}
+               "moe_path": moe_launches["flash_attention"],
+               "sharding_path": mesh_k2}
     model_launches["flash_attention"] = sum(by_path.values())
     model_entries = model_kernel_entries(fa_ops, ssd_ops,
                                          model_launches, model_shapes,

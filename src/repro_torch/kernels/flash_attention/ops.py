@@ -5,7 +5,9 @@ and the plain PyTorch version.
 with ``use_kernel=True``. The plain version is taken for one reason
 only besides an explicit ``use_kernel=False``: the tensors lie on the
 CPU. For CUDA tensors with ``use_kernel=True`` the kernel is launched or
-the call raises; there is no fallback. Every launch adds one to
+the call raises; there is no fallback. On meta tensors (a dry run, which
+moves no data) the call gives the kernel's outputs as meta tensors and
+launches nothing. Every launch adds one to
 ``counts.flash_attention`` when the caller hands in ``counts`` (a
 `kernels.counts.KernelCounts`), so a run can show that it went through
 the kernel; the module keeps no state of its own.
@@ -34,6 +36,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             v.transpose(1, 2).reshape(B * K, Skv, hd),
                             causal=causal, window=window)
         return out.reshape(B, H, Sq, hd).transpose(1, 2)
+    if q.device.type == "meta":             # shapes only (a dry run): the
+        return torch.empty_like(q)          # kernel's output, nothing launched
     out = _kernel.flash_attention_cuda(q, k, v, window=window)
     if counts is not None:
         counts.flash_attention += 1

@@ -5,7 +5,9 @@ and the plain PyTorch version.
 ``use_kernel=True``. The plain version is taken for one reason only
 besides an explicit ``use_kernel=False``: the tensors lie on the CPU.
 For CUDA tensors with ``use_kernel=True`` the kernel is launched or the
-call raises; there is no fallback. The kernel reads b and c per batch
+call raises; there is no fallback. On meta tensors (a dry run, which
+moves no data) the call gives the kernel's outputs as meta tensors and
+launches nothing. The kernel reads b and c per batch
 row for every head, so nothing is broadcast per head on that path (the
 plain version, a test oracle, does broadcast). Every launch adds one to
 ``counts.ssd`` when the caller hands in ``counts`` (a
@@ -37,6 +39,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                        c[:, None].expand(B, H, S, N).reshape(B * H, S, N))
         return (y.reshape(B, H, S, P).transpose(1, 2),
                 h.reshape(B, H, N, P))
+    if x.device.type == "meta":             # shapes only (a dry run): the
+        return (torch.empty_like(x),        # kernel's outputs, no launch
+                x.new_empty((B, H, N, P), dtype=torch.float32))
     out = _kernel.ssd_cuda(x, dt, a, b, c, chunk=chunk)
     if counts is not None:
         counts.ssd += 1

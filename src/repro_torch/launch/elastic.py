@@ -13,9 +13,8 @@ benchmark, so `checkpoint.planner` sizes its replication level with the
 predictor: replication >= 2 lets a restore proceed even when the
 checkpoint's own storage nodes died with the pod.
 
-The reference's `resharded_state`, which re-places a restored state with
-a new mesh's NamedShardings, waits for the port's sharding layer
-(ROADMAP Queue A item 12).
+`resharded_state` re-places a restored host state with a new mesh's
+shardings (`repro_torch.parallel`), as DTensors.
 """
 from __future__ import annotations
 
@@ -24,6 +23,8 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 from ..core.faults import from_pod_health
+from ..parallel.sharding import distribute, to_shardings
+from ..tree import tree_map
 
 
 @dataclass
@@ -91,6 +92,19 @@ def plan_degraded_mesh(health: PodHealth) -> ElasticDecision:
         needs_restore=n < health.n_pods,
         global_batch_scale=n / health.n_pods,
     )
+
+
+def resharded_state(state, old_mesh, new_mesh, param_specs_fn):
+    """Re-shard a host-side state tree (numpy arrays or CPU tensors) for a
+    new mesh: in production the restore path reads each shard's chunks
+    from intermediate storage (replicas cover dead nodes); here each leaf
+    is placed with the new mesh's shardings, from the full value every
+    rank holds (no collective: each rank keeps its own pieces).
+    ``param_specs_fn(new_mesh)`` gives the spec tree of ``state``;
+    ``old_mesh``, the mesh the state was saved from, is not read: the
+    host copy no longer depends on it."""
+    shardings = to_shardings(param_specs_fn(new_mesh), new_mesh)
+    return tree_map(distribute, state, shardings)
 
 
 class ElasticTrainer:

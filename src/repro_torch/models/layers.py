@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..env import DeviceLike, resolve_device
+from ..parallel.sharding import replicate_like
 
 # the logical names of the axes that `model._stack_defs` puts in front of
 # a block's ParamDefs (one slice per layer; per group and layer in the
@@ -146,7 +147,10 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
-    """x: [..., n_heads, head_dim]; cos/sin broadcastable [..., 1, head_dim//2]."""
+    """x: [..., n_heads, head_dim]; cos/sin broadcastable [..., 1, head_dim//2].
+    On a DTensor ``x`` the tables (plain tensors every rank computes
+    alike) are replicated onto its mesh."""
+    cos, sin = replicate_like(cos, x), replicate_like(sin, x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -167,11 +171,13 @@ def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
     The K taps are summed as shifted slices in f32 and rounded once to
     x's dtype, as the reference's einsum over [B, S, K, C] windows does,
     without building the windows and without cuDNN (whose f32 conv runs
-    in TF32 by default)."""
+    in TF32 by default). On a DTensor ``x`` the zero pad is replicated
+    onto its mesh."""
     B, S, C = x.shape
     K = w.shape[-1]
     if state is None:
-        pad = torch.zeros((B, K - 1, C), dtype=x.dtype, device=x.device)
+        pad = replicate_like(torch.zeros((B, K - 1, C), dtype=x.dtype,
+                                         device=x.device), x)
     else:
         pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)                             # [B, S+K-1, C]

@@ -21,10 +21,14 @@ step), so the reference's ``unroll`` switch has nothing to select and is
 left out. ``remat=True`` wraps each layer body (each group body for the
 hybrid, as the reference checkpoints ``group_body``) in
 `torch.utils.checkpoint.checkpoint` with ``use_reentrant=False``, the
-counterpart of `jax.checkpoint`. The reference's
-`repro.parallel.sharding.constrain_*` calls and `_constrain_logits` are
-sharding constraints that do nothing without a device mesh and are left
-out (ROADMAP Queue A item 12).
+counterpart of `jax.checkpoint`.
+
+Under a device mesh (parameters and inputs as DTensors placed by
+`repro_torch.parallel`) the same code runs on DTensors, with the
+reference's constraints where it has them: the residual stream
+batch-sharded after the embedding and after every layer (hybrid: every
+group), the decode embeddings batch-sharded, the logits vocab-sharded.
+Without a mesh every constraint passes its tensor through.
 """
 from __future__ import annotations
 
@@ -34,6 +38,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..env import DeviceLike, resolve_device
+from ..parallel.sharding import (constrain_activations, constrain_batch_dim,
+                                 constrain_logits, embed_lookup, first_argmax,
+                                 label_logit, logsumexp_last,
+                                 replicate_like)
 from .config import ArchConfig
 from .layers import ParamDef, count_params, init_params, rms_norm, tree_map_defs
 from .ssm import SSMState, init_ssm_state, ssm_block_apply, ssm_block_defs
@@ -160,7 +168,7 @@ def _embed(params, tokens_or_embeds: torch.Tensor, cfg: ArchConfig) -> torch.Ten
     if cfg.frontend in ("audio", "vlm"):
         # frontend stub: precomputed frame/patch embeddings, already [B,S,d]
         return tokens_or_embeds.to(dt)
-    return params["embed"].to(dt)[tokens_or_embeds]
+    return embed_lookup(params["embed"].to(dt), tokens_or_embeds)
 
 
 def _head(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -200,18 +208,18 @@ def forward(params, tokens_or_embeds: torch.Tensor, cfg: ArchConfig, *,
     pass instead of keeping its activations."""
     _check_family(cfg)
     params = cast_params(params, cfg)
-    x = _embed(params, tokens_or_embeds, cfg)
+    x = constrain_activations(_embed(params, tokens_or_embeds, cfg))
     kw = dict(use_kernel=use_kernel, counts=counts)
 
     def attn_body(y, p_layer):
-        return block_apply(p_layer, y, cfg, **kw)[0]
+        return constrain_activations(block_apply(p_layer, y, cfg, **kw)[0])
 
     def ssm_body(y, p_layer):
-        return ssm_block_apply(p_layer, y, cfg, **kw)[0]
+        return constrain_activations(ssm_block_apply(p_layer, y, cfg, **kw)[0])
 
     def group_body(y, p_group):
         for p_layer in _unstack(p_group, cfg.shared_attn_every):
-            y = ssm_body(y, p_layer)
+            y = ssm_block_apply(p_layer, y, cfg, **kw)[0]
         return attn_body(y, params["shared"])
 
     if cfg.family in ATTN_FAMILIES:
@@ -248,7 +256,7 @@ def decode_step(params, state: DecodeState, tokens: torch.Tensor,
     _check_family(cfg)
     params = cast_params(params, cfg)
     tok = tokens[:, None] if tokens.dim() == 1 else tokens[:, None, :]
-    x = _embed(params, tok, cfg)
+    x = constrain_batch_dim(_embed(params, tok, cfg))
 
     kv, ssm = state.kv, state.ssm
     if cfg.family in ATTN_FAMILIES:
@@ -281,25 +289,32 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy. batch: {tokens|embeds, labels, [mask]}.
 
-    ``logsumexp`` runs over the f32 logits; the label logit is a
-    `gather` of the logits in their own dtype, the value the reference's
-    one-hot contraction gives, without building a [B, S, Vp] one-hot.
-    The loss and the accuracy (the first index among equal logits) are
-    masked by ``mask``. Returns (loss, {"loss", "accuracy", "tokens"}),
-    all 0-d tensors."""
+    ``logsumexp`` runs over the f32 logits; the label logit is taken in
+    the logits' own dtype, the value the reference's one-hot contraction
+    gives, without building a [B, S, Vp] one-hot; the accuracy compares
+    the first index among equal logits. Without a mesh these are
+    `torch.logsumexp`, a `gather` and `argmax`. Under a mesh the logits
+    never leave their vocab shards: the logsumexp is spelt out as a max
+    and a sum that reduce across the shards (`logsumexp_last`), each
+    shard picks the labels in its slice of the vocab and the parts are
+    summed (`label_logit`), and `first_argmax` takes the least of the
+    shards' first indices. The loss and the accuracy are masked by
+    ``mask``. Returns (loss, {"loss", "accuracy", "tokens"}), all 0-d
+    tensors."""
     inp = batch.get("tokens", batch.get("embeds"))
     logits = forward(params, inp, cfg, use_kernel=use_kernel, remat=remat,
                      counts=counts)                 # [B, S, Vp]
+    logits = constrain_logits(logits)
     labels = batch["labels"].long()
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0].float()
-    ll = label_logit - lse
+    labels, mask = replicate_like(labels, logits), replicate_like(mask, logits)
+    lse = logsumexp_last(logits.float())
+    ll = label_logit(logits, labels).float() - lse
     denom = torch.clamp_min(mask.sum(), 1.0)
     loss = -(ll * mask).sum() / denom
-    acc = ((logits.argmax(-1) == labels) * mask).sum() / denom
+    acc = ((first_argmax(logits) == labels) * mask).sum() / denom
     return loss, {"loss": loss, "accuracy": acc,
                   "tokens": mask.sum()}

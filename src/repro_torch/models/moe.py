@@ -7,7 +7,13 @@ the hand-written kernel of `kernels.moe_gmm` with ``use_kernel=True``)
 and combines with the routing weights. Tokens overflowing an expert's
 capacity are dropped (they contribute zero), the standard Switch/GShard
 behaviour. Without a device mesh the reference dispatches in one group
-(``G = 1``); so does the port.
+(``G = 1``); so does the port. Under a mesh (DTensor activations) each
+data-parallel shard of the batch is a group, dispatched and combined
+on its rank (`run_local`) with the capacity of its own tokens, as the
+reference's per-group dispatch: the experts split over "model" when
+their count does (each rank runs its own experts, tokens routed
+elsewhere count zero there), else the expert FFN width does, and the
+ranks' parts of the output are summed over "model".
 """
 from __future__ import annotations
 
@@ -15,7 +21,10 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from ..parallel.sharding import (ModelPartial, batch_and, model_axis_if,
+                                 run_local)
 from .config import ArchConfig
 from .layers import ParamDef
 
@@ -65,12 +74,41 @@ def expert_ffn_einsum(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 def moe_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
               use_kernel: bool = False, counts=None) -> torch.Tensor:
-    """x: [B, S, d] -> [B, S, d]. One dispatch group (the reference's
-    ``G = 1`` without a mesh). The scatter adds in place into a fresh
-    buffer (`index_add_`), which autograd differentiates."""
+    """x: [B, S, d] -> [B, S, d]. One dispatch group without a mesh (the
+    reference's ``G = 1``); one per data-parallel shard on DTensors."""
+    if isinstance(x, DTensor):
+        return _moe_on_mesh(p, x, cfg, use_kernel, counts)
+    return _moe_group(p, x, cfg, use_kernel, counts)
+
+
+def _moe_on_mesh(p: Dict, x: DTensor, cfg: ArchConfig, use_kernel: bool,
+                 counts) -> DTensor:
+    mesh = x.device_mesh
+    e_ax = model_axis_if(cfg.n_experts, mesh)
+    f_ax = None if e_ax else model_axis_if(cfg.d_ff, mesh)
+    x_spec = batch_and(x, {})
+    w_up, w_down = (e_ax, None, f_ax), (e_ax, f_ax, None)
+
+    def local(xl, router, wg, wu, wd):
+        e0 = mesh.get_local_rank("model") * wg.shape[0] if e_ax else 0
+        return _moe_group({"router": router, "wg": wg, "wu": wu, "wd": wd},
+                          xl, cfg, use_kernel, counts, e0=e0)
+
+    out = ModelPartial(x_spec) if (e_ax or f_ax) else x_spec
+    return run_local(local, mesh, [x_spec, (None, None), w_up, w_up, w_down],
+                     out, x, p["router"], p["wg"], p["wu"], p["wd"])
+
+
+def _moe_group(p: Dict, x: torch.Tensor, cfg: ArchConfig, use_kernel: bool,
+               counts, e0: int = 0) -> torch.Tensor:
+    """One dispatch group through the experts ``p`` holds: all of them,
+    or ``wg.shape[0]`` from expert ``e0`` on (tokens routed to others
+    count zero), at the FFN width ``p`` holds. The scatter adds in place
+    into a fresh buffer (`index_add_`), which autograd differentiates."""
     B, S, d = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k
+    El = p["wg"].shape[0]
     C = capacity(cfg, T)
     xt = x.reshape(T, d)
     top_idx, top_w, _aux = route(p["router"], xt, cfg)
@@ -89,7 +127,7 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
     for j in range(k):
         buf.index_add_(0, slot.view(T, k)[:, j], xt)
-    buf = buf[:E * C].reshape(E, C, d)
+    buf = buf[e0 * C:(e0 + El) * C].reshape(El, C, d)
 
     dt = x.dtype
     if use_kernel:
@@ -100,8 +138,11 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         out = expert_ffn_einsum(buf[None], p["wg"], p["wu"], p["wd"])[0]
 
-    # gather (the dump row reads zeros), weight, sum over the k choices
-    flat = torch.cat([out.reshape(E * C, d),
+    # gather (the dump row reads zeros: dropped tokens and, past the
+    # experts held here, tokens routed elsewhere), weight, sum over k
+    local = (slot >= e0 * C) & (slot < (e0 + El) * C)
+    slot = torch.where(local, slot - e0 * C, torch.full_like(slot, El * C))
+    flat = torch.cat([out.reshape(El * C, d),
                       torch.zeros((1, d), dtype=dt, device=x.device)])
     y = flat[slot] * top_w.reshape(T * k)[:, None]
     return y.reshape(B, S, k, d).sum(dim=2)

@@ -8,6 +8,12 @@ a loop. With ``use_kernel=True`` prefill goes through the hand-written
 CUDA kernel of `kernels.ssd`. Decode (`ssd_step`) runs no kernel, as in
 the reference.
 
+On DTensor activations (a device mesh) the projections' outputs are
+placed batch-only (every feature on every model shard) before they are
+split and reshaped into heads and chunks, and the scan runs on each
+rank's batch rows and heads (`run_local`): a chunk never straddles two
+shards.
+
 Notation (single SSM head): h_t = a_t * h_{t-1} + dt_t * B_t x_t,
 y_t = C_t^T h_t, with a_t = exp(-dt_t * A). Heads share B_t/C_t
 (n_groups = 1, as in Mamba2 defaults).
@@ -19,7 +25,11 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
 from ..env import DeviceLike, resolve_device
+from ..parallel.sharding import (batch_and, constrain_activations,
+                                 constrain_batch_dim, model_axis_if, run_local)
 from .config import ArchConfig
 from .layers import ParamDef, causal_depthwise_conv, rms_norm
 
@@ -119,6 +129,29 @@ def ssd_step(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y.to(x.dtype), h
 
 
+def _scan(xh, dt, a, b, c, cfg: ArchConfig, use_kernel: bool, counts):
+    """The prefill scan's y: the kernel or the plain `ssd_chunked`."""
+    if use_kernel:
+        from ..kernels.ssd import ops as ssd_ops
+        return ssd_ops.ssd(xh.contiguous(), dt, a, b.contiguous(),
+                           c.contiguous(), chunk=cfg.ssm_chunk,
+                           use_kernel=True, counts=counts)[0]
+    return ssd_chunked(xh, dt, a, b, c, chunk=cfg.ssm_chunk)[0]
+
+
+def _scan_on_mesh(xh: DTensor, dt, a, b, c, cfg: ArchConfig,
+                  use_kernel: bool, counts) -> DTensor:
+    """`_scan` on each rank's batch rows and, when they split evenly over
+    "model", its heads (b and c, shared by the heads, on every shard)."""
+    mesh = xh.device_mesh
+    h_ax = model_axis_if(cfg.ssm_heads, mesh)
+    x_spec = batch_and(xh, {2: h_ax})
+    return run_local(
+        lambda *t: _scan(*t, cfg, use_kernel, counts), mesh,
+        [x_spec, batch_and(dt, {2: h_ax}), (h_ax,), batch_and(b, {}),
+         batch_and(c, {})], x_spec, xh, dt, a, b, c)
+
+
 def ssm_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
               state: Optional[SSMState] = None, use_kernel: bool = False,
               counts=None) -> Tuple[torch.Tensor, Optional[SSMState]]:
@@ -126,7 +159,7 @@ def ssm_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     B, S, d = x.shape
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     P = di // H
-    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    zxbcdt = constrain_batch_dim(x @ p["in_proj"].to(x.dtype))
     z, xin, bc, dt_raw = torch.split(zxbcdt, [di, di, 2 * N, H], dim=-1)
 
     conv_in = torch.cat([xin, bc], dim=-1)                        # [B,S,di+2N]
@@ -136,19 +169,14 @@ def ssm_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         conv_out, new_conv = causal_depthwise_conv(conv_in, p["conv_w"],
                                                    state=state.conv)
-    xs, b, c = torch.split(conv_out, [di, N, N], dim=-1)
+    xs, b, c = torch.split(constrain_batch_dim(conv_out), [di, N, N], dim=-1)
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())       # [B,S,H]
     a = torch.exp(p["a_log"].float())                             # [H] positive
     xh = xs.reshape(B, S, H, P)
 
     if state is None:
-        if use_kernel:
-            from ..kernels.ssd import ops as ssd_ops
-            y, _h = ssd_ops.ssd(xh.contiguous(), dt, a, b.contiguous(),
-                                c.contiguous(), chunk=cfg.ssm_chunk,
-                                use_kernel=True, counts=counts)
-        else:
-            y, _h = ssd_chunked(xh, dt, a, b, c, chunk=cfg.ssm_chunk)
+        scan = _scan_on_mesh if isinstance(xh, DTensor) else _scan
+        y = scan(xh, dt, a, b, c, cfg, use_kernel, counts)
         new_state = None
     else:
         y1, h = ssd_step(xh[:, 0], dt[:, 0], a, b[:, 0], c[:, 0], state.h)
@@ -178,4 +206,4 @@ def ssm_block_apply(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
                     counts=None):
     h, new_state = ssm_apply(p["ssm"], rms_norm(x, p["ln"], cfg.norm_eps), cfg,
                              state=state, use_kernel=use_kernel, counts=counts)
-    return x + h, new_state
+    return x + constrain_activations(h), new_state

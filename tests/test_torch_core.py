@@ -247,5 +247,7 @@ def test_all_slice_modules_exist():
                 "serve/server.py", "checkpoint/planner.py",
                 "checkpoint/store.py", "optim/adamw.py", "data/pipeline.py",
                 "launch/train.py", "launch/elastic.py", "kernels/counts.py",
-                "tree.py"):
+                "tree.py", "parallel/__init__.py", "parallel/sharding.py",
+                "launch/mesh.py", "launch/analytic.py", "launch/dryrun.py",
+                "launch/dryrun_meta.py"):
         assert (pkg / rel).is_file(), rel

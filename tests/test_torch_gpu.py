@@ -539,3 +539,47 @@ def test_checkpoint_round_trip_of_card_tensors(tmp_path):
     for (p, a), (q, b) in zip(tree_paths(restored), tree_paths(state)):
         assert p == q and a.device.type == "cuda" and a.dtype == b.dtype
         assert torch.equal(a, b), p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "mixtral-8x22b"])
+def test_mesh_forward_launches_kernels_inside_local_map(name):
+    """On a (1, 1) NCCL mesh (one rank, every placement whole) the
+    forward with DTensor parameters runs K2 and K3 (zamba2) or K2 and K4
+    (mixtral) inside `local_map`: the same launches as without a mesh,
+    the same logits at the f32 tolerance."""
+    need_card()
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.elastic import resharded_state
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import param_specs, to_shardings
+    from repro_torch.parallel.sharding import distribute
+
+    cfg = TC.get(name).reduced().replace(dtype="float32")
+    params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device="cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 64), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    want_n = KernelCounts()
+    want = forward(params, toks, cfg, use_kernel=True, remat=False,
+                   counts=want_n)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        got_n = KernelCounts()
+        got = forward(resharded_state(params, None, mesh,
+                                      lambda m: param_specs(cfg, m)),
+                      distribute(toks, to_shardings({"t": (("data",), None)},
+                                                    mesh)["t"]),
+                      cfg, use_kernel=True, remat=False, counts=got_n)
+        got = got.full_tensor()
+    finally:
+        dist.destroy_process_group()
+    assert got_n == want_n and got_n != KernelCounts(), (got_n, want_n)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -7,9 +7,11 @@ stack, the sweep-scan kernel package, `obs`, `serve` — plus the top of
 `repro_torch/kernels` (`build.py`, which every kernel launch loads its
 library through, and `counts.py`), the other three kernel packages and
 the training path (`models`, `train`, `optim`, `data`, `checkpoint`,
-`launch`), and must exit 0: K1's launch count lives in the session's
-`CacheStats`, K2-K4's in the `KernelCounts` their caller hands in, and
-loaded libraries in a memoised function.
+`launch`) and the sharding layer (`parallel`, which reads each tensor's
+mesh off the tensor and keeps no ambient mesh), and must exit 0: K1's
+launch count lives in the session's `CacheStats`, K2-K4's in the
+`KernelCounts` their caller hands in, and loaded libraries in a
+memoised function.
 A copy of the kernel package with a module-level counter put back must
 fail the same check, so the check is known to bite on these roots.
 The multi-process module's shared fleet (`_POOLS`) and per-worker
@@ -31,7 +33,7 @@ ROOTS = [PORT / "core" / "sweep", PORT / "kernels" / "sweep_scan",
          PORT / "kernels" / "flash_attention", PORT / "kernels" / "ssd",
          PORT / "kernels" / "moe_gmm", PORT / "models", PORT / "train",
          PORT / "optim", PORT / "data", PORT / "checkpoint",
-         PORT / "launch"]
+         PORT / "launch", PORT / "parallel"]
 
 
 def run_tool(*roots):

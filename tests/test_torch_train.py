@@ -268,6 +268,32 @@ def test_train_step_matches_reference(accum):
     assert counts == KernelCounts()          # the plain paths launch nothing
 
 
+@pytest.mark.parametrize("name", ["musicgen-medium", "llava-next-34b"])
+def test_train_step_on_a_stub_frontend_matches_reference(name):
+    """A stub frontend feeds embeddings, so the embedding table takes no
+    part in the loss: its gradient is zero, as `jax.grad` gives it, and
+    the step decays it like every other parameter."""
+    jcfg, tcfg = pair(name)
+    jp, tp = carried(jcfg)
+    jb, tb = batches(jcfg)
+    assert "embeds" in tb and "tokens" not in tb
+    opt = dict(lr=1e-5, warmup_steps=1, total_steps=10)
+    js, jm = jax.jit(j_make_train_step(jcfg, j_adamw.AdamWConfig(**opt)))(
+        JTrainState(params=jp, opt=j_adamw.init(jp)), jb)
+    ts, tm = make_train_step(tcfg, adamw.AdamWConfig(**opt))(
+        TrainState(params=tp, opt=adamw.init(tp)), tb)
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
+                               rtol=1e-4)
+    want, got = jax_paths(js.params), port_paths(ts.params)
+    lr = float(jm["lr"])
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0,
+                                   atol=1e-6 + 2 * lr, err_msg=k)
+    assert not np.any(port_paths(ts.opt.mu)["['embed']"])
+
+
 def test_train_step_with_kernels_raises():
     _, tcfg = pair("granite-3-2b")
     with pytest.raises(ValueError, match="no backward"):
