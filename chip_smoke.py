@@ -17,7 +17,9 @@ line:
                started together
   kernel_check sweep_scan kernel vs its plain PyTorch version ON THE
                CARD, `torch.equal` on makespan and end (tolerance: none,
-               the arithmetic is max and + in f64 in one order), over
+               the arithmetic is max and + in f64 in one order), in f64
+               and again in f32 (the same 48 cases with dur and lag
+               rounded to f32: the kernel's f32 instantiation), over
                boundary and multi-tile shapes and rows whose deps sit at
                every hand-over point of the kernel's tile schedule, in
                the shared-memory and the device-memory regime, healthy
@@ -67,6 +69,30 @@ line:
                rate doubles; one checkpoint plan; the generated grid's
                best row and the plan's winner held to the bit against
                K1's plain version on the card. No K1 fallback
+  f32_sweep    REPRO_SIM_X64=0 (set for this phase only, restored after):
+               the three trace fixtures over fixture_sweep's grid, each
+               f32 scan best within the reference's golden 1.5% of its
+               f64 exact makespan (ref_sim); main_path's healthy BLAST
+               grid once more on its warm DAG cache: f32 against f64
+               makespans (largest relative gap, same best or not:
+               reported, no bar); every f32 bucket of the fixtures and
+               BLAST's up to 2^14 op rows `torch.equal` to K1's f32 plain
+               version, one BLAST row to the f32 host loop; 0 fallbacks
+  examples_path the entry points as subprocesses on the card (`python -m
+               repro_torch.examples.<name>`), all started together: (a)
+               provisioning_advisor at paper scale but for its query
+               count (BLAST 1710 MB, 20 nodes, --queries 10: Scenario I's
+               54 candidates with exact verification of the top 3,
+               Scenario II's 84): worst and verified best equal to the
+               host loop and to ref_sim (rtol 1e-12, and to the digits
+               printed), a non-empty Pareto front, 0 K1 fallbacks;
+               exact verification's, Scenario I's and II's seconds, DAG
+               compiles; (b)-(d) quickstart (sysid parameters,
+               prediction errors), advisor_server --selftest, a server
+               with advisor_client --tenants 4 --requests 3 (every answer
+               ok, one at least coalesced or cached; round trips p50 and
+               max), serve_batch and train_e2e (their own asserts, the
+               plans through K1 with 0 fallbacks)
   fixture_sweep the three `examples/traces/` fixtures read by the port's
                own readers, each swept over a 9-node grid on the card,
                one full-size row of each equal to the bit to the scalar
@@ -150,6 +176,9 @@ line:
                shape the plain version can take, and a library call's
                time where one PyTorch call computes the same function
                (for flash_attention also at mixtral's windowed shapes);
+               sweep_scan's f32 instantiation timed at f32_sweep's
+               largest BLAST bucket beside the f64 time in the same call,
+               with its bound at 4-byte floats;
                yardsticks that are several calls are named apart (ssd:
                the model's plain chunked path; moe_gmm: three bmm), ssd's
                allocation peak of one call is measured, and sweep_scan's
@@ -187,8 +216,10 @@ sys.path.insert(0, str(ROOT / "src"))
 # power limit the card runs under (printed beside it)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F64_FLOPS = 33.5e12
+PEAK_F32_FLOPS = 67e12            # float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12          # dense tensor-core rate
 BYTES_PER_OPROW = 44      # res 4, dur 8, lag 8, deps 16 read; end 8 written
+BYTES_PER_OPROW_F32 = 32  # the same in f32: dur, lag and end 4 bytes each
 FLOPS_PER_OPROW = 8       # five max + three add per op row
 MAXD = 4
 SEED = 0
@@ -196,9 +227,12 @@ SEED = 0
 # 8192 steps on an H100 SXM at 700 W, whatever C), so it is timed and
 # compared at the largest main-path bucket of at most this many op rows
 PLAIN_MAX_N = 1 << 17
-# values the kernel's general walk is checked on (phase kernel_check)
+# values the kernel's general walk is checked on (phase kernel_check); in
+# f32 the tiny negative is f32's (-1e-300 would round to -0.0)
 SPECIAL_VALUES = (-0.5, -1e-300, -0.0, float("nan"), float("inf"),
                   -float("inf"))
+SPECIAL_VALUES_F32 = (-0.5, -1e-30, -0.0, float("nan"), float("inf"),
+                      -float("inf"))
 
 # the advisor path (phase advisor_path), on the main path's warm session:
 # sysid at the reference test's probe settings; timelines for the grid's
@@ -221,6 +255,21 @@ TRACES = ROOT / "examples" / "traces"
 FIXTURES = ("montage_small.json", "blast_small.json", "cycles_small.dax")
 FIXTURE_GRID = {"n_nodes": [9], "chunk_sizes": [256 * 1024, 1 << 20, 4 << 20],
                 "stripe_widths": (0, 2)}
+# the f32 sweep (phase f32_sweep): the reference's scan-vs-exact bar for
+# the fixtures (tests/test_trace.py), and the largest BLAST f32 bucket
+# held against K1's plain version (about 1.4 s of plain loop a 8192 rows)
+FIXTURE_SCAN_EXACT_RTOL = 0.015
+F32_PLAIN_MAX_N = 1 << 14
+# the entry points (phase examples_path): the advisor CLI's query count
+# (its default is 100, whose exact verification walks 2^19 + 2^17 op rows
+# in a loop of eager launches, ~163 s on an H100: at 10 its top 3 sit
+# at 5-7 app nodes, under 2^18 rows, and every DAG stays paper size; see
+# PERF.md §4), and a deadline per subprocess far above its seconds, so a
+# hung example fails the phase
+CLI_QUERIES = 10
+EXAMPLE_TIMEOUT_S = 700
+# padded op rows exact mode is timed at (`phase_exact_scaling`, run alone)
+EXACT_SCALING_N = (1 << 14, 1 << 16, 1 << 17)
 # where the phase writes its Perfetto trace (ignored by git)
 BUILD_DIR = ROOT / "build" / "chip_smoke"
 
@@ -461,17 +510,19 @@ def abs_err(a, b) -> float:
 
 
 def phase_kernel_check(ops_mod, kernel_mod):
-    """Kernel vs plain version on the card; returns the largest absolute
-    difference seen (the contract is 0.0)."""
+    """Kernel vs plain version on the card, in f64 and in f32 (the same
+    cases: dur and lag rounded to f32, the regimes' caps at f32's shared
+    memory sizes); returns the largest absolute difference seen (the
+    contract is 0.0)."""
     dev = torch.device("cuda")
-    # forces end[N] out of shared memory even at tiny N
-    small_cap = kernel_mod.load().sweep_scan_base_smem_bytes(128)
     cases = []
     worst = 0.0
 
-    def check(tag, arrays, n_res, caps):
+    def check(tag, arrays, n_res, caps, dt):
         nonlocal worst
-        res, dur, lag, deps = (torch.from_numpy(a).to(dev) for a in arrays)
+        res, dur, lag, deps = arrays
+        res, deps = (torch.from_numpy(a).to(dev) for a in (res, deps))
+        dur, lag = (torch.from_numpy(a).to(dev, dt) for a in (dur, lag))
         mk_p, end_p = ops_mod.sweep_scan(res, dur, lag, deps,
                                          n_resources=n_res, use_kernel=False)
         for regime, cap in caps:
@@ -480,77 +531,111 @@ def phase_kernel_check(ops_mod, kernel_mod):
                                              use_kernel=True,
                                              max_smem_bytes=cap)
             torch.cuda.synchronize()
+            assert mk_k.dtype == end_k.dtype == dt
             err = max(abs_err(mk_k, mk_p), abs_err(end_k, end_p))
             worst = max(worst, err)
             equal = same_values(mk_k, mk_p) and same_values(end_k, end_p)
-            cases.append({"case": tag, "regime": regime, "equal": equal})
+            cases.append({"case": tag, "dtype": str(dt).split(".")[-1],
+                          "regime": regime, "equal": equal})
             if not equal:
                 raise AssertionError(
-                    f"sweep_scan kernel != plain version: {tag} [{regime}] "
-                    f"max abs err {err}")
+                    f"sweep_scan kernel != plain version: {tag} [{regime}, "
+                    f"{dt}] max abs err {err}")
 
-    both = [("smem", kernel_mod.MAX_SMEM_BYTES), ("gmem", None)]
-    for n_ops, n_cand, n_res, seed in BOUNDARY + MULTI_TILE:
-        caps = [(r, c if c is not None
-                 else kernel_mod.load().sweep_scan_base_smem_bytes(n_res))
-                for r, c in both]
-        check(f"N={n_ops},C={n_cand},R={n_res}",
-              random_bucket(n_ops, n_cand, n_res, seed), n_res, caps)
-    for n_ops, n_cand, n_res, seed in ADVERSARIAL:
-        caps = [("smem", kernel_mod.MAX_SMEM_BYTES),
-                ("gmem", kernel_mod.load().sweep_scan_base_smem_bytes(n_res))]
-        check(f"N={n_ops},C={n_cand},R={n_res} adversarial deps",
-              adversarial_bucket(n_ops, n_cand, n_res, seed,
-                                 kernel_mod.TILE_ROWS), n_res, caps)
-    big = random_bucket(4096, 64, 128, SEED)
-    caps = [("smem", kernel_mod.MAX_SMEM_BYTES), ("gmem", small_cap)]
-    check("N=4096,C=64,R=128 healthy", big, 128, caps)
-    res, dur, lag, deps = big
-    rng = np.random.default_rng(SEED + 1)
-    dur = dur.copy()
-    dur[rng.random(dur.shape) < 0.01] += 1e30     # dead-op style durations
-    check("N=4096,C=64,R=128 dead-ops", (res, dur, lag, deps), 128, caps)
-    # the general walk: a value outside dur, lag >= 0 at seeded places of
-    # both, and every lag of one candidate negative
-    for value in SPECIAL_VALUES:
-        for n_ops, n_cand, n_res, seed in [(600, 4, 8, 9), ADVERSARIAL[0]]:
-            res, dur, lag, deps = adversarial_bucket(
-                n_ops, n_cand, n_res, seed, kernel_mod.TILE_ROWS)
-            rng = np.random.default_rng(seed + 2)
-            for arr in (dur, lag):
-                arr[rng.integers(0, n_cand, 8),
-                    rng.integers(0, n_ops, 8)] = value
-            lag[1] -= 0.05
-            caps = [("smem", kernel_mod.MAX_SMEM_BYTES),
-                    ("gmem",
-                     kernel_mod.load().sweep_scan_base_smem_bytes(n_res))]
-            check(f"N={n_ops},C={n_cand},R={n_res} value {value!r}",
-                  (res, dur, lag, deps), n_res, caps)
+    for dt, specials in ((torch.float64, SPECIAL_VALUES),
+                         (torch.float32, SPECIAL_VALUES_F32)):
+        def caps(n_res):
+            # the shared-memory regime, and a cap that forces end[N] out
+            # of shared memory even at tiny N
+            return [("smem", kernel_mod.MAX_SMEM_BYTES),
+                    ("gmem", kernel_mod.base_smem_bytes(n_res, dt))]
+
+        for n_ops, n_cand, n_res, seed in BOUNDARY + MULTI_TILE:
+            check(f"N={n_ops},C={n_cand},R={n_res}",
+                  random_bucket(n_ops, n_cand, n_res, seed), n_res,
+                  caps(n_res), dt)
+        for n_ops, n_cand, n_res, seed in ADVERSARIAL:
+            check(f"N={n_ops},C={n_cand},R={n_res} adversarial deps",
+                  adversarial_bucket(n_ops, n_cand, n_res, seed,
+                                     kernel_mod.TILE_ROWS), n_res,
+                  caps(n_res), dt)
+        big = random_bucket(4096, 64, 128, SEED)
+        check("N=4096,C=64,R=128 healthy", big, 128, caps(128), dt)
+        res, dur, lag, deps = big
+        rng = np.random.default_rng(SEED + 1)
+        dur = dur.copy()
+        dur[rng.random(dur.shape) < 0.01] += 1e30   # dead-op style durations
+        check("N=4096,C=64,R=128 dead-ops", (res, dur, lag, deps), 128,
+              caps(128), dt)
+        # the general walk: a value outside dur, lag >= 0 at seeded places
+        # of both, and every lag of one candidate negative
+        for value in specials:
+            for n_ops, n_cand, n_res, seed in [(600, 4, 8, 9), ADVERSARIAL[0]]:
+                res, dur, lag, deps = adversarial_bucket(
+                    n_ops, n_cand, n_res, seed, kernel_mod.TILE_ROWS)
+                rng = np.random.default_rng(seed + 2)
+                for arr in (dur, lag):
+                    arr[rng.integers(0, n_cand, 8),
+                        rng.integers(0, n_ops, 8)] = value
+                lag[1] -= 0.05
+                check(f"N={n_ops},C={n_cand},R={n_res} value {value!r}",
+                      (res, dur, lag, deps), n_res, caps(n_res), dt)
+    by_dtype = {d: sum(c["dtype"] == d for c in cases)
+                for d in ("float64", "float32")}
     emit({"phase": "kernel_check", "kernel": "sweep_scan",
           "tolerance": "none (torch.equal, NaN equal to NaN)",
-          "cases": len(cases),
+          "cases": len(cases), "cases_by_dtype": by_dtype,
           "all_equal": all(c["equal"] for c in cases),
           "max_abs_err": worst, "detail": cases})
     return worst
 
 
-def host_scan(ops, st, torch_sim, ref_sim):
+def f32_durations(ops, st, torch_sim):
+    """A healthy DAG's durations and lags as the simulator computes them
+    under REPRO_SIM_X64=0: every array rounded to f32 first, then each
+    product and sum in f32 (NumPy f32 arrays, one rounding an op)."""
+    vec = torch_sim.st_to_vec(st).astype(np.float32)
+    brate = np.zeros(torch_sim.N_CLS, np.float32)
+    rrate = np.zeros(torch_sim.N_CLS, np.float32)
+    brate[[torch_sim.CLS_NET_REMOTE, torch_sim.CLS_NET_LOCAL,
+           torch_sim.CLS_STORAGE]] = vec[[torch_sim.ST_NET_REMOTE,
+                                         torch_sim.ST_NET_LOCAL,
+                                         torch_sim.ST_STORAGE]]
+    rrate[[torch_sim.CLS_MANAGER, torch_sim.CLS_CLIENT,
+           torch_sim.CLS_STORAGE]] = vec[[torch_sim.ST_MANAGER,
+                                         torch_sim.ST_CLIENT,
+                                         torch_sim.ST_STORAGE_REQ]]
+    f32 = np.float32
+    cls = ops.cls.astype(np.int64)
+    dur = (ops.nbytes.astype(f32) * brate[cls]
+           + ops.reqs.astype(f32) * rrate[cls]) + ops.extra.astype(f32)
+    lag = ops.nlat.astype(f32) * vec[torch_sim.ST_NET_LATENCY]
+    return dur, lag
+
+
+def host_scan(ops, st, torch_sim, ref_sim, f32=False):
     """The scan-mode makespan of one DAG, and its ops' completion times
     in op order, by a scalar loop on the host: same order, same
-    recurrence, plain Python floats."""
+    recurrence, plain Python floats (with ``f32``, NumPy f32 scalars and
+    `f32_durations`: the REPRO_SIM_X64=0 simulator's arithmetic)."""
     perm = torch_sim.scan_order(ops, st)
     n = ops.n_ops
     inv = np.empty(n, dtype=np.int64)
     inv[perm] = np.arange(n)
-    dur = ref_sim.durations(ops, st)[perm].tolist()
-    lag = (ops.nlat * st.net_latency)[perm].tolist()
+    if f32:
+        dur, lag = (list(a[perm]) for a in f32_durations(ops, st, torch_sim))
+        zero = np.float32(0.0)
+    else:
+        dur = ref_sim.durations(ops, st)[perm].tolist()
+        lag = (ops.nlat * st.net_latency)[perm].tolist()
+        zero = 0.0
     res = ops.res[perm].tolist()
     deps = np.where(ops.deps >= 0, inv[ops.deps], -1)[perm].tolist()
-    avail = [0.0] * ops.n_resources
-    end = [0.0] * n
-    mk = 0.0
+    avail = [zero] * ops.n_resources
+    end = [zero] * n
+    mk = zero
     for i in range(n):
-        ready = 0.0
+        ready = zero
         for d in deps[i]:
             if d >= 0 and end[d] > ready:
                 ready = end[d]
@@ -1194,6 +1279,348 @@ def phase_fixture_sweep(core, torch_sim, ref_sim):
     return stats.kernel_launches
 
 
+@contextlib.contextmanager
+def sim_f32():
+    """REPRO_SIM_X64=0 for the block, the variable as it was after it
+    (the simulators read it per call: nothing later runs in f32)."""
+    prev = os.environ.get("REPRO_SIM_X64")
+    os.environ["REPRO_SIM_X64"] = "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_SIM_X64", None)
+        else:
+            os.environ["REPRO_SIM_X64"] = prev
+
+
+def hold_f32_buckets(sess, st, torch_sim, ops_mod, max_n):
+    """Every stacked f32 bucket of ``sess`` of at most ``max_n`` op rows:
+    K1 against its plain version on the card, `torch.equal` (NaN equal
+    to NaN) on makespan and end. These launches pass no counter.
+    Returns the (C, N) shapes held."""
+    keys = sess.engine.cache_keys()
+    held = []
+    for batch, fbatch in sess.engine.cached_batches():
+        C, N = batch.res.shape
+        if N > max_n:
+            continue
+        assert batch.nbytes.dtype == torch.float32
+        st_vecs = torch_sim.st_tensor(
+            np.stack([torch_sim.st_to_vec(st)] * C), sess.device)
+        dur, lag = torch_sim._durations(batch, st_vecs, fbatch)
+        assert dur.dtype == lag.dtype == torch.float32
+        r_pad = max(k[1] for k in keys if k[0] == N)
+        args = (batch.res.contiguous(), dur.contiguous(), lag.contiguous(),
+                batch.deps.contiguous())
+        mk_k, end_k = ops_mod.sweep_scan(*args, n_resources=r_pad,
+                                         use_kernel=True)
+        mk_p, end_p = ops_mod.sweep_scan(*args, n_resources=r_pad,
+                                         use_kernel=False)
+        torch.cuda.synchronize()
+        assert mk_k.dtype == torch.float32
+        assert same_values(mk_k, mk_p) and same_values(end_k, end_p), \
+            f"f32 K1 != its plain version on a ({C}, {N}) bucket"
+        held.append([C, N])
+    return held
+
+
+def phase_f32_sweep(core, torch_sim, ref_sim, ops_mod, warm):
+    """The REPRO_SIM_X64=0 sweep on the card: the three trace fixtures
+    over fixture_sweep's grid on a fresh session, and main_path's healthy
+    BLAST grid once more on its warm DAG cache. Every f32 bucket of the
+    fixtures, and of BLAST up to F32_PLAIN_MAX_N op rows, held against
+    K1's f32 plain version; one BLAST row held against the f32 host loop;
+    each fixture's f32 scan best within the reference's golden tolerance
+    of its f64 exact makespan (ref_sim); BLAST's f32 vs f64 makespans
+    reported. Returns (K1 launches, f32 timing inputs at the largest
+    BLAST bucket)."""
+    from repro_torch.core import trace, x64
+
+    st = core.PAPER_RAMDISK
+    t_phase = time.perf_counter()
+    with sim_f32():
+        assert x64.sim_dtype() == torch.float32
+        # -- the fixtures ---------------------------------------------------
+        fsess = core.SweepSession(core.InlineBackend())
+        fsess.stats.reset()                     # K1's count: 0 just before
+        rows = []
+        for name in FIXTURES:
+            wf = trace.to_workflow(trace.load_trace(TRACES / name))
+            cands = core.grid(**FIXTURE_GRID)
+            evals = core.explore(lambda c: wf, cands, st, verify_top_k=0,
+                                 session=fsess)
+            torch.cuda.synchronize()
+            best = evals[0]
+            ops = fsess.compile_cache.get(wf, best.candidate.to_config())
+            exact64 = ref_sim.simulate(ops, st).makespan
+            gap = abs(best.makespan - exact64) / exact64
+            assert gap <= FIXTURE_SCAN_EXACT_RTOL, (name, best.makespan,
+                                                    exact64)
+            rows.append({"fixture": name, "best": describe(best),
+                         "f64_exact_s": exact64, "rel_gap": gap})
+        held = hold_f32_buckets(fsess, st, torch_sim, ops_mod, 1 << 62)
+        assert held and all(k[7] == torch.float32
+                            for k in fsess.engine.cache_keys())
+        fstats = fsess.stats
+        assert fstats.kernel_fallbacks == 0 and fstats.kernel_launches > 0
+        fixture_launches = fstats.kernel_launches
+        fsess.close()
+
+        # -- main_path's healthy BLAST grid, on its warm DAG cache -------------
+        cands, workflow_for = warm["cands"], warm["workflow_for"]
+        bsess = core.SweepSession(
+            core.InlineBackend(),
+            compile_cache=warm["session"].compile_cache)
+        bsess.stats.reset()                     # K1's count: 0 just before
+        t0 = time.perf_counter()
+        evals = core.explore(workflow_for, cands, st, verify_top_k=0,
+                             session=bsess)
+        torch.cuda.synchronize()
+        blast_s = time.perf_counter() - t0
+        bstats = bsess.stats
+        assert bstats.kernel_fallbacks == 0 and bstats.kernel_launches > 0
+        assert bstats.misses == bstats.kernel_launches   # one per bucket
+        assert all(k[7] == torch.float32 for k in bsess.engine.cache_keys())
+        assert all(np.isfinite(e.makespan) and e.makespan > 0 for e in evals)
+        blast_held = hold_f32_buckets(bsess, st, torch_sim, ops_mod,
+                                      F32_PLAIN_MAX_N)
+        # one row, the largest of at most PLAIN_MAX_N ops, against the host
+        # loop in f32 (the buckets above F32_PLAIN_MAX_N are too long for
+        # the plain version)
+        ops_all = [warm["session"].compile_cache.get(workflow_for(c),
+                                                     c.to_config())
+                   for c in cands]
+        row_i = max((i for i, o in enumerate(ops_all)
+                     if o.n_ops <= PLAIN_MAX_N), key=lambda i: ops_all[i].n_ops)
+        host_mk = host_scan(ops_all[row_i], st, torch_sim, ref_sim,
+                            f32=True)[0]
+        dev_mk = next(e.makespan for e in evals if e.index == row_i)
+        assert float(host_mk) == dev_mk, (host_mk, dev_mk)
+        f64 = dict(warm["ranked"])
+        gaps = [abs(e.makespan - f64[e.index]) / f64[e.index] for e in evals]
+        batches = bsess.engine.cached_batches()
+        big = max(batches, key=lambda bf: (bf[0].res.shape[1],
+                                           bf[0].res.shape[0]))[0]
+        C, N = big.res.shape
+        st_vecs = torch_sim.st_tensor(
+            np.stack([torch_sim.st_to_vec(st)] * C), bsess.device)
+        dur, lag = torch_sim._durations(big, st_vecs)
+        timing = {"res": big.res.clone(), "dur": dur.contiguous(),
+                  "lag": lag.contiguous(), "deps": big.deps.clone(),
+                  "n_resources": max(k[1] for k in bsess.engine.cache_keys()
+                                     if k[0] == N)}
+        blast_launches = bstats.kernel_launches
+        bsess.close()
+    assert x64.sim_dtype() == torch.float64
+    emit({"phase": "f32_sweep", "env": "REPRO_SIM_X64=0 (in-process, "
+          "restored after)", "fixtures": rows,
+          "fixture_rtol": FIXTURE_SCAN_EXACT_RTOL,
+          "fixture_buckets_held_c_n": held,
+          "fixture_kernel_launches": fixture_launches,
+          "blast": {"candidates": len(cands), "seconds": blast_s,
+                    "buckets_held_c_n": blast_held,
+                    "plain_max_n": F32_PLAIN_MAX_N,
+                    "host_row": {"n_ops": int(ops_all[row_i].n_ops),
+                                 "host_makespan": float(host_mk),
+                                 "device_makespan": dev_mk},
+                    "max_rel_gap_f32_vs_f64": max(gaps),
+                    "best_f32": describe(evals[0]),
+                    "best_f64_index": warm["ranked"][0][0],
+                    "same_best": evals[0].index == warm["ranked"][0][0],
+                    "kernel_launches": blast_launches},
+          "kernel_launches": fixture_launches + blast_launches,
+          "kernel_fallbacks": 0,
+          "seconds": time.perf_counter() - t_phase})
+    return fixture_launches + blast_launches, timing
+
+
+def run_example(name, args, timeout):
+    """``python -m repro_torch.examples.<name> args`` from the repository
+    root, the real entry point; returns (exit code, stdout, stderr,
+    seconds)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           f"repro_torch.examples.{name}", *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    return (proc.returncode, proc.stdout, proc.stderr,
+            time.perf_counter() - t0)
+
+
+def _line(out: str, prefix: str) -> str:
+    hits = [ln for ln in out.splitlines() if ln.strip().startswith(prefix)]
+    assert hits, f"no line starting {prefix!r} in:\n{out}"
+    return hits[0].strip()
+
+
+def _ints(text: str):
+    import re
+    return [int(x) for x in re.findall(r"(?<![\w.])(\d+)(?![\w.])", text)]
+
+
+def _kernel_counts(out: str):
+    """(launches, fallbacks) from an example's device line."""
+    import re
+    m = re.search(r"sweep_scan kernel[^:]*: (\d+) launches, (\d+) fallbacks",
+                  out)
+    assert m, f"no sweep_scan kernel counts in:\n{out}"
+    return int(m.group(1)), int(m.group(2))
+
+
+def _cand_of(line: str):
+    """(n_app, n_storage, chunk bytes, stripe width) from an advisor line
+    ``N app / M storage, chunk K KB, stripe W|all -> ...``."""
+    import re
+    m = re.search(r"(\d+) app / (\d+) storage, chunk (\d+) KB, stripe (\w+)",
+                  line)
+    assert m, line
+    sw = m.group(4)
+    return (int(m.group(1)), int(m.group(2)), int(m.group(3)) * KB,
+            0 if sw == "all" else int(sw))
+
+
+def phase_examples_path(core, torch_sim, ref_sim):
+    """The system's entry points, each as a subprocess on the card
+    (``python -m repro_torch.examples.<name>``), all started together:
+    (a) the provisioning advisor at paper scale but for its query count
+    (BLAST, 1710 MB, 20 nodes, ``--queries CLI_QUERIES``: Scenario I's 54
+    candidates with exact verification of its top 3, then Scenario II's
+    84): its worst equal to the host loop's scan makespan and its
+    verified best to ref_sim on the host (rtol 1e-12), both to the digits
+    printed, a non-empty Pareto front, no K1 fallback; (b)-(d)
+    quickstart, advisor_server --selftest, a server with advisor_client
+    (4 tenants x 3 requests), serve_batch and train_e2e: exit 0 (the
+    scripts' own asserts), every answer ok, one at least coalesced or
+    cached, the plans through K1 with no fallback. Each subprocess's
+    seconds are its own start to its end (the others run beside it).
+    Returns the K1 launches the examples printed."""
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core import workloads
+
+    t_phase = time.perf_counter()
+    st = core.PAPER_RAMDISK
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    server = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.examples.advisor_server",
+         "--port", str(port)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    jobs = {"provisioning_advisor": ["--queries", str(CLI_QUERIES)],
+            "quickstart": [], "advisor_server_selftest": ["--selftest"],
+            "serve_batch": [], "train_e2e": []}
+    try:
+        with ThreadPoolExecutor(len(jobs) + 1) as pool:
+            futs = {k: pool.submit(run_example,
+                                   k.replace("_selftest", ""), a,
+                                   EXAMPLE_TIMEOUT_S)
+                    for k, a in jobs.items()}
+            listening = server.stdout.readline()
+            assert "advisor listening" in listening, listening
+            futs["advisor_client"] = pool.submit(
+                run_example, "advisor_client",
+                ["--port", str(port), "--tenants", "4", "--requests", "3"],
+                EXAMPLE_TIMEOUT_S)
+            done = {k: f.result() for k, f in futs.items()}
+    finally:
+        server.terminate()
+        server.wait(timeout=60)
+    for k, (rc, o, e, _) in done.items():
+        assert rc == 0, f"{k} exit {rc}:\n{o}\n{e}"
+
+    # -- (a) the provisioning advisor ------------------------------------------
+    _, out, _, cli_s = done["provisioning_advisor"]
+    best_ln, worst_ln = _line(out, "best :"), _line(out, "worst:")
+    assert best_ln.endswith("(verified)"), best_ln
+    cands = {(c.n_app, c.n_storage, c.chunk_size, c.stripe_width): c
+             for c in core.grid(n_nodes=[NODES],
+                                chunk_sizes=[k * KB for k in CHUNKS_KB])}
+
+    def dag(line):
+        c = cands[_cand_of(line)]
+        return core.compile_workflow(
+            workloads.blast(c.n_app, n_queries=CLI_QUERIES), c.to_config())
+
+    worst_mk = host_scan_makespan(dag(worst_ln), st, torch_sim, ref_sim)
+    assert f"-> {worst_mk:.1f}s" in worst_ln, (worst_ln, worst_mk)
+    best_ops = dag(best_ln)
+    t0 = time.perf_counter()
+    ref = ref_sim.simulate(best_ops, st).makespan
+    ref_s = time.perf_counter() - t0
+    wall_ln = _line(out, "[wall: scenario I")
+    verified = [float(x) for x in
+                re.search(r"verified best makespans \[([^\]]*)\]",
+                          wall_ln).group(1).split(",")]
+    np.testing.assert_allclose(verified[0], ref, rtol=1e-12)
+    assert f"-> {ref:.1f}s (verified)" in best_ln, (best_ln, ref)
+    front = _ints(_line(out, "Pareto frontier"))
+    assert front[0] >= 1 and front[1] == 84, front
+    launches, fallbacks = _kernel_counts(out)
+    assert fallbacks == 0 and launches > 0, (launches, fallbacks)
+    cc = _ints(_line(out, "[compile cache:"))
+    secs = {k: float(v) for k, v in re.findall(
+        r"(scenario I+|exact verify|total) ([\d.]+)s", out)}
+    shapes = re.search(r"over (\S+) buckets", wall_ln).group(1)
+    cli = {"args": f"defaults but --queries {CLI_QUERIES}",
+           "seconds": cli_s, "scenario_I_s": secs["scenario I"],
+           "scenario_II_s": secs["scenario II"],
+           "exact_verify_s": secs["exact verify"],
+           "exact_verify_buckets_n_r_c": shapes,
+           "best_ops": int(best_ops.n_ops),
+           "cli_total_s": secs["total"],
+           "compile_cache": {"candidates": cc[0], "dag_compiles": cc[1],
+                             "hits": cc[2], "dedup_shared": cc[3]},
+           "best": best_ln, "worst": worst_ln,
+           "best_verified_s": verified[0], "best_ref_sim_s": ref,
+           "ref_sim_host_s": ref_s, "worst_host_scan_s": worst_mk,
+           "pareto_front": front[0], "scenario_II_candidates": front[1],
+           "kernel_launches": launches, "kernel_fallbacks": fallbacks,
+           "stdout": out.splitlines()}
+
+    # -- (b)-(d) -----------------------------------------------------------------
+    qs = done["quickstart"][1]
+    sysid = {k: _line(qs, k) for k in ("net_remote", "net_local", "storage",
+                                        "manager")}
+    errs = [float(x) for x in re.findall(r"err +([+-][\d.]+)%", qs)]
+    assert len(errs) == 2, qs
+    sv = done["advisor_server_selftest"][1]
+    assert "selftest ok" in sv
+    cl = done["advisor_client"][1]
+    assert "ERROR" not in cl
+    summary = cl.strip().splitlines()[-1]
+    n_ok, n_all, *_ = _ints(summary.split(" answered")[0])
+    shared = int(re.search(r"(\d+) served by a coalesced", summary).group(1))
+    assert n_ok == n_all == 12 and shared >= 1, summary
+    rtts = sorted(float(x) for x in re.findall(r"rtt=(\d+)ms", cl))
+    sb, te = done["serve_batch"][1], done["train_e2e"][1]
+    sb_k, te_k = _kernel_counts(sb), _kernel_counts(te)
+    assert sb_k[1] == 0 and sb_k[0] > 0 and te_k[1] == 0 and te_k[0] > 0, \
+        (sb_k, te_k)
+    total = launches + sb_k[0] + te_k[0]
+    emit({"phase": "examples_path", "provisioning_advisor": cli,
+          "quickstart": {"seconds": done["quickstart"][3], "sysid": sysid,
+                         "prediction_err_pct": errs},
+          "advisor_server_selftest": {"seconds":
+                                      done["advisor_server_selftest"][3],
+                                      "stdout": sv.splitlines()},
+          "advisor_client": {"seconds": done["advisor_client"][3],
+                             "answered": n_ok, "requests": n_all,
+                             "coalesced_or_cached": shared,
+                             "rtt_ms_p50": rtts[len(rtts) // 2],
+                             "rtt_ms_max": rtts[-1]},
+          "serve_batch": {"seconds": done["serve_batch"][3],
+                          "kernel_launches": sb_k[0],
+                          "stdout": sb.splitlines()},
+          "train_e2e": {"seconds": done["train_e2e"][3],
+                        "kernel_launches": te_k[0],
+                        "last_lines": te.splitlines()[-3:]},
+          "kernel_launches": total, "kernel_fallbacks": 0,
+          "seconds": time.perf_counter() - t_phase})
+    return total
+
+
 def phase_exact_path(core):
     from repro_torch.core import ref_sim, workloads
 
@@ -1247,6 +1674,44 @@ def phase_exact_path(core):
           "argmin_first_of_ties_on_card": True, "verified": rows,
           "predictor_ref": p_ref.makespan, "predictor_exact": p_exact.makespan,
           "seconds": time.perf_counter() - t0})
+
+
+def phase_exact_scaling(core, n_pads=EXACT_SCALING_N, n_cand=3):
+    """Exact mode's seconds on the card for one batch of ``n_cand``
+    candidates (explore's ``verify_top_k=3``) padded to each of
+    ``n_pads`` op rows: one scatter/gather DAG padded up, so every row
+    past its own ops is a no-op. A step of the loop touches every row
+    whatever they hold, so the seconds depend on the padded size and not
+    on the DAG. Not run by `main` (about half a minute at these sizes);
+    run it alone to predict exact verification at paper scale:
+    ``python3 -c "import chip_smoke as c; from repro_torch import core;
+    c.phase_exact_scaling(core)"``."""
+    from repro_torch.core import torch_sim, workloads
+
+    st = core.PAPER_RAMDISK
+    c = core.grid(n_nodes=[12])[0]
+    ops = core.compile_workflow(
+        workloads.scatter_gather(c.n_app, in_mb=200, shard_mb=40,
+                                 out_mb=10), c.to_config())
+    dev = torch.device("cuda")
+    st_vecs = torch_sim.st_tensor(
+        np.stack([torch_sim.st_to_vec(st)] * n_cand), dev)
+    rows = []
+    for n_pad in n_pads:
+        a = torch_sim.OpArrays.from_micro_ops(ops, pad_to=n_pad,
+                                              device=dev).expand(n_cand)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mk, _ = torch_sim.simulate_arrays(a, st_vecs,
+                                          n_resources=ops.n_resources,
+                                          exact=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        assert bool(torch.isfinite(mk).all())
+        rows.append({"n_pad": n_pad, "candidates": n_cand, "seconds": secs,
+                     "us_per_step": secs / n_pad * 1e6})
+    emit({"phase": "exact_scaling", "dag_ops": ops.n_ops, "rows": rows})
+    return rows
 
 
 def fa_inputs(B, S, H, K, hd, dtype, gen):
@@ -2837,7 +3302,7 @@ def moe_kernel_entries(fa_ops, gmm_ops, launches, shapes, worst):
 
 
 def kernels_line(ops_mod, kernel_mod, launches_by_path, timing, max_abs_err,
-                 model_entries):
+                 model_entries, timing_f32, f32_launches):
     """Time sweep_scan on the main path's own buckets and print the
     kernels line: the kernel at the largest bucket beside its bounds,
     and kernel and plain version side by side (and compared) at the
@@ -2888,6 +3353,12 @@ def kernels_line(ops_mod, kernel_mod, launches_by_path, timing, max_abs_err,
         f"sweep_scan kernel != plain version on a main-path bucket: {err}"
     bytes_ms = BYTES_PER_OPROW * C * N / PEAK_BYTES_PER_S * 1e3
     flops_ms = FLOPS_PER_OPROW * C * N / PEAK_F64_FLOPS * 1e3
+    # the f32 instantiation at f32_sweep's largest BLAST bucket (the same
+    # shape as the f64 one), in this call beside the f64 time
+    C32, N32 = timing_f32["res"].shape
+    f32_ms = cuda_time_ms(lambda: run(True, timing_f32), reps=3)
+    f32_bytes_ms = BYTES_PER_OPROW_F32 * C32 * N32 / PEAK_BYTES_PER_S * 1e3
+    f32_flops_ms = FLOPS_PER_OPROW * C32 * N32 / PEAK_F32_FLOPS * 1e3
     emit({"kernels": [{
         "name": "sweep_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/sweep_scan/csrc/sweep_scan.cu",
@@ -2906,6 +3377,13 @@ def kernels_line(ops_mod, kernel_mod, launches_by_path, timing, max_abs_err,
         "plain_shape_c_n_r": [mid["res"].shape[0], mid["res"].shape[1],
                               mid["n_resources"]],
         "ms_at_plain_shape": kernel_mid_ms,
+        "f32": {"shape_c_n_r": [C32, N32, timing_f32["n_resources"]],
+                "ms": f32_ms, "f64_ms_same_call": kernel_ms,
+                "bound_ms": max(f32_bytes_ms, f32_flops_ms),
+                "bound_by": ("bytes" if f32_bytes_ms >= f32_flops_ms
+                             else "operations"),
+                "launches": sum(f32_launches.values()),
+                "launches_by_path": f32_launches},
         "library_ms": None}] + model_entries})
 
 
@@ -2938,7 +3416,13 @@ def main() -> int:
     scan_launches["main_path"], timing, warm = phase_main_path(core)
     scan_launches["backends_path"] = phase_backends_path(core, warm)
     scan_launches["advisor_path"] = phase_advisor_path(core, warm)
+    # REPRO_SIM_X64=0 for this phase only; then the entry points as
+    # subprocesses
+    scan_launches["f32_sweep"], timing_f32 = phase_f32_sweep(
+        core, torch_sim, ref_sim, ops_mod, warm)
     del warm
+    scan_launches["examples_path"] = phase_examples_path(core, torch_sim,
+                                                         ref_sim)
     scan_launches["fixture_sweep"] = phase_fixture_sweep(core, torch_sim,
                                                          ref_sim)
     phase_exact_path(core)
@@ -2959,7 +3443,8 @@ def main() -> int:
                                            moe_shapes, model_worst)
     model_entries[0].update(fa_moe, launches_by_path=by_path)
     kernels_line(ops_mod, kernel_mod, scan_launches, timing, max_abs_err,
-                 model_entries + [gmm_entry])
+                 model_entries + [gmm_entry], timing_f32,
+                 {"f32_sweep": scan_launches["f32_sweep"]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

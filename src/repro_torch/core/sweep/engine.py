@@ -31,10 +31,15 @@ Below the callables sit two caches that keep warm sweeps device-bound
 otherwise dwarfs the simulation itself):
 
 * a **row cache** of prepped `OpArrays`, keyed by (DAG identity, service
-  times, ops bucket, exact) — subset re-sweeps (halving rounds, what-if
-  loops) skip `scan_order` and padding for every row seen before;
+  times, ops bucket, exact, dtype) — subset re-sweeps (halving rounds,
+  what-if loops) skip `scan_order` and padding for every row seen before;
 * a **batch cache** of stacked bucket batches, keyed by the row keys —
   an identical re-sweep skips stacking entirely.
+
+Every cache key names the float type (`core.x64.sim_dtype`, f64 or f32
+under ``REPRO_SIM_X64=0``), read once per `simulate_batch` call: a batch
+never mixes the two, and a sweep after the switch flips meets no entry
+of the other type.
 
 Both hold tensors on the engine's device. Counters track exact-mode
 usage (the search layer proves it verifies shortlists with one batched
@@ -57,17 +62,19 @@ from ...kernels.sweep_scan import ops as sweep_scan_ops
 from ...obs.trace import NULL_TRACER
 from ..compile import MicroOps
 from ..types import ServiceTimes
+from ..x64 import sim_dtype
 from .. import torch_sim
 from .buckets import group_by_bucket
 from . import shard as _shard
 
 # key: (n_ops_bucket, n_resources_bucket, batch_bucket, exact, n_shards,
-#       faulted, kernel) — faulted buckets take a third FaultArrays
+#       faulted, kernel, dtype) — faulted buckets take a third FaultArrays
 # argument, so they are a distinct structural class from healthy ones;
 # kernel marks scan callables that run the CUDA sweep_scan kernel rather
-# than the plain PyTorch loop. A mesh change keeps only the k[4] == 1
-# entries (`set_mesh`).
-CacheKey = Tuple[int, int, int, bool, int, bool, bool]
+# than the plain PyTorch loop, dtype the float type of the bucket (the
+# kernel's f64 or f32 instantiation). A mesh change keeps only the
+# k[4] == 1 entries (`set_mesh`).
+CacheKey = Tuple[int, int, int, bool, int, bool, bool, torch.dtype]
 
 # the engine's ``sim_engine`` knob: what a scan-mode bucket runs through.
 # "auto" takes the CUDA kernel whenever the engine's device is a CUDA
@@ -323,7 +330,7 @@ class SweepEngine:
 
     # -- host-prep caches ------------------------------------------------------
     def _prepped_row(self, ops: MicroOps, st: ServiceTimes, n_pad: int,
-                     r_pad: int, exact: bool
+                     r_pad: int, exact: bool, dtype: torch.dtype
                      ) -> Tuple[tuple, torch_sim.OpArrays,
                                 Optional[torch_sim.FaultArrays]]:
         """Padded (and, in scan mode, permuted) device-side arrays for
@@ -331,9 +338,11 @@ class SweepEngine:
         Exact mode never permutes, so its key is service-time free.
         Faulted DAGs also carry their `FaultArrays` (padded to the same
         bucket; ``r_pad`` sizes the multiplier vector, hence its place in
-        the key); healthy DAGs carry None."""
-        key = (id(ops), n_pad, r_pad, True) if exact else \
-            (id(ops), n_pad, r_pad, False, torch_sim.st_to_vec(st).tobytes())
+        the key); healthy DAGs carry None. ``dtype`` is what the arrays
+        are rounded to, and part of the key."""
+        key = (id(ops), n_pad, r_pad, True, dtype) if exact else \
+            (id(ops), n_pad, r_pad, False, dtype,
+             torch_sim.st_to_vec(st).tobytes())
         hit = self._rows.get(key)
         if hit is not None:
             self.stats.row_hits += 1
@@ -342,10 +351,11 @@ class SweepEngine:
         self.stats.row_misses += 1
         perm = None if exact else torch_sim.scan_order(ops, st)
         arr = torch_sim.OpArrays.from_micro_ops(ops, pad_to=n_pad, perm=perm,
-                                                device=self.device)
+                                                device=self.device,
+                                                dtype=dtype)
         farr = (torch_sim.FaultArrays.from_micro_ops(
                     ops, n_resources=r_pad, pad_to=n_pad, perm=perm,
-                    device=self.device)
+                    device=self.device, dtype=dtype)
                 if torch_sim.faulted(ops) else None)
         self._rows[key] = (ops, arr, farr)
         if len(self._rows) > self.max_row_entries:
@@ -355,7 +365,7 @@ class SweepEngine:
     def _stacked(self, row_keys: Tuple[tuple, ...], ops: List[MicroOps],
                  arrays: List[torch_sim.OpArrays],
                  farrs: Optional[List[Optional[torch_sim.FaultArrays]]],
-                 n_pad: int, r_pad: int):
+                 n_pad: int, r_pad: int, dtype: torch.dtype):
         """Stacked bucket batch; an identical re-sweep skips the stack
         entirely. The entry pins the MicroOps references itself: row
         keys are id()-based, and a row entry may be evicted (releasing
@@ -364,9 +374,10 @@ class SweepEngine:
 
         ``farrs`` is None for all-healthy buckets; in a faulted bucket,
         healthy rows get a shared *neutral* `FaultArrays` (x1.0 / +0.0 —
-        exact in f64, so those rows match the healthy path element-wise).
-        The key needs no fault flag: row keys pin DAG identity, and a
-        DAG's fault state is part of the DAG."""
+        exact in f64 and f32, so those rows match the healthy path
+        element-wise). The key needs no fault flag and no dtype: row keys
+        pin DAG identity and dtype, and a DAG's fault state is part of
+        the DAG."""
         hit = self._stacks.get(row_keys)
         if hit is not None:
             self.stats.stack_hits += 1
@@ -377,7 +388,8 @@ class SweepEngine:
         fbatch = None
         if farrs is not None:
             neutral = torch_sim.FaultArrays.neutral(n_pad, r_pad,
-                                                    device=self.device)
+                                                    device=self.device,
+                                                    dtype=dtype)
             fbatch = torch_sim.FaultArrays.stack(
                 [f if f is not None else neutral for f in farrs])
         self._stacks[row_keys] = (tuple(ops), batch, fbatch)
@@ -400,9 +412,13 @@ class SweepEngine:
 
     def simulate_batch(self, ops_list: Sequence[MicroOps],
                        st_list: Sequence[ServiceTimes], *,
-                       exact: bool = False) -> np.ndarray:
-        """Makespans for C (DAG, ServiceTimes) pairs, bucketed + cached."""
+                       exact: bool = False,
+                       dtype: Optional[torch.dtype] = None) -> np.ndarray:
+        """Makespans for C (DAG, ServiceTimes) pairs, bucketed + cached.
+        ``dtype`` (default: `x64.sim_dtype()`, read once here) is the
+        float type of every bucket of the call."""
         assert len(ops_list) == len(st_list)
+        dtype = sim_dtype() if dtype is None else dtype
         self.stats.batch_calls += 1
         # count REQUESTED candidates; padding is tracked in padded_rows
         self.stats.sims += len(ops_list)
@@ -427,7 +443,7 @@ class SweepEngine:
                 with self.tracer.span(f"prep[{n_pad}x{r_pad}]",
                                       phase="host-prep", rows=len(idxs)):
                     keyed = [self._prepped_row(ops_list[i], st_list[i],
-                                               n_pad, r_pad, exact)
+                                               n_pad, r_pad, exact, dtype)
                              for i in idxs]
                     vecs = [torch_sim.st_to_vec(st_list[i]) for i in idxs]
                     # one faulted row makes the whole bucket faulted:
@@ -443,13 +459,15 @@ class SweepEngine:
                         [ops_list[i] for i in idxs],
                         [a for _, a, _ in keyed],
                         [f for _, _, f in keyed] if faulted_b else None,
-                        n_pad, r_pad)
-                    st_vecs = torch.from_numpy(np.stack(vecs)).to(self.device)
+                        n_pad, r_pad, dtype)
+                    st_vecs = torch_sim.st_tensor(np.stack(vecs), self.device,
+                                                  dtype)
                 with self.tracer.span(f"sim[{n_pad}x{r_pad}x{c_pad}]",
                                       phase=sim_phase, rows=len(idxs),
                                       shards=shards, faulted=faulted_b):
                     fn = self._executable((n_pad, r_pad, c_pad, exact,
-                                           shards, faulted_b, use_kernel))
+                                           shards, faulted_b, use_kernel,
+                                           dtype))
                     res = fn(batch, st_vecs, fbatch if faulted_b else None,
                              stats=self.stats)
                     # the copy to the host waits for the device result,

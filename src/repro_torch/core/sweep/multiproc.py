@@ -66,6 +66,7 @@ from ...obs.trace import NULL_TRACER, Tracer, WireSpan
 from ..compile import compile_count
 from ..sysid import SysIdReport
 from ..types import ServiceTimes, StorageConfig, Workflow
+from ..x64 import sim_dtype
 from .compilecache import CompileCache
 from .engine import SweepEngine
 
@@ -222,7 +223,8 @@ def _worker_run(item_id: int,
                 st: StLike, locality_aware: bool,
                 cache_path: Optional[str], exact: bool,
                 sim_engine: str = "auto", trace: bool = False,
-                device: str = "cuda"):
+                device: str = "cuda",
+                dtype: Optional[torch.dtype] = None):
     """Execute one work item: compile-or-load each class DAG through the
     shared disk cache, simulate every member row in one engine call on
     the worker's engine for ``device`` (the parent engine's device), and
@@ -230,7 +232,9 @@ def _worker_run(item_id: int,
     rollup.
     ``sim_engine`` travels in the payload (pools outlive sweeps, so the
     worker engine re-points its scan body per item; the executable cache
-    key carries the flag, so switching never serves a stale build).
+    key carries the flag, so switching never serves a stale build), and
+    so does ``dtype``, the parent's `x64.sim_dtype()` for the sweep (a
+    worker's environment is the one it was spawned with).
     ``trace`` hangs a fresh item-local `Tracer` on the engine: its spans
     ship back as `WireSpan` tuples relative to the item's start, for the
     parent to re-base onto its own clock (`Tracer.absorb`)."""
@@ -251,7 +255,7 @@ def _worker_run(item_id: int,
                 ops = cache.get(wf, cfg, locality_aware=locality_aware)
                 ops_list.extend([ops] * count)
         values = engine.simulate_batch(ops_list, [st_val] * len(ops_list),
-                                       exact=exact)
+                                       exact=exact, dtype=dtype)
     finally:
         engine.tracer = NULL_TRACER   # never leak an item-local tracer
     e_delta = {f: getattr(engine.stats, f) - e0[f] for f in _ENGINE_ROLLUP}
@@ -431,7 +435,8 @@ class MultiprocSweep:
             items.append((parts, members))
         return items
 
-    def _fallback(self, parts, exact: bool) -> np.ndarray:
+    def _fallback(self, parts, exact: bool,
+                  dtype: Optional[torch.dtype] = None) -> np.ndarray:
         """In-process execution of one item (worker died / pool broken):
         the parent's cache and engine serve it (on the parent's device,
         through the same kernel dispatch), so the sweep completes with
@@ -443,7 +448,7 @@ class MultiprocSweep:
             ops_list.extend([ops] * count)
         st_val = resolve_st(self.st)
         return self.engine.simulate_batch(ops_list, [st_val] * len(ops_list),
-                                          exact=exact)
+                                          exact=exact, dtype=dtype)
 
     def _roll_up(self, wname: str, e_delta: Dict[str, int],
                  c_delta: Dict[str, int], n_compiles: int) -> None:
@@ -474,6 +479,7 @@ class MultiprocSweep:
         self.engine.stats.mp_items += len(items)
         tr = self.tracer
         device = str(self.engine.device)
+        dtype = sim_dtype()               # one float type for every item
         if (not exact and self.engine.sim_engine != "torch"
                 and self.engine.device.type == "cuda"):
             # build the kernel library here, once, before the fleet runs:
@@ -507,7 +513,7 @@ class MultiprocSweep:
                     futures.append(pool.submit(
                         _worker_run, item_id, parts, self.st,
                         self.locality_aware, self.cache_path, exact,
-                        self.engine.sim_engine, tr.enabled, device))
+                        self.engine.sim_engine, tr.enabled, device, dtype))
                 except RuntimeError:      # pool shut down under us
                     futures.append(None)
         pool_broken = False               # one respawn per dispatch generation
@@ -584,7 +590,7 @@ class MultiprocSweep:
                                   offset=max(tr.now() - w_end,
                                              submit_at[item_id]))
                 else:
-                    values = self._fallback(parts, exact)
+                    values = self._fallback(parts, exact, dtype)
                 for i, v in zip(members, values):
                     out[pos[i]] = float(v)
         return out

@@ -26,11 +26,15 @@ Service times enter as a 7-vector per candidate, so "what-if" hardware
 sweeps (§2.1: e.g. SSDs) reuse one prepared DAG.
 
 Everything is f64 (times in seconds need more than f32's 7 digits to
-reproduce the oracle's FIFO tie-breaking); every constructor below
-names ``dtype=torch.float64`` because `torch.zeros(n)` alone is f32.
-Each arithmetic step is its own eager PyTorch op, in the reference's
-order, so scan-mode results are element-wise equal to the reference's
-(no fused multiply-add can creep in).
+reproduce the oracle's FIFO tie-breaking), or f32 under
+``REPRO_SIM_X64=0`` (`core.x64`). The host builds f64 NumPy arrays and
+rounds them to `x64.sim_dtype()` where they become tensors, as the
+reference's ``jnp.asarray`` does: the op arrays, the fault arrays and
+the service-time vectors; every step after that runs in that dtype.
+Each constructor below names its dtype because `torch.zeros(n)` alone
+is f32. Each arithmetic step is its own eager PyTorch op, in the
+reference's order, so scan-mode results are element-wise equal to the
+reference's (no fused multiply-add can creep in).
 
 Entry points take ``device`` (default ``"cuda"``) and raise when no
 card is present; ``device="cpu"`` runs the same code on the host.
@@ -51,12 +55,11 @@ from .compile import (CLS_CLIENT, CLS_MANAGER, CLS_NET_LOCAL, CLS_NET_REMOTE,
 from .faults import DEAD_TIME
 from .ref_sim import durations as _ref_durations
 from .types import PAPER_RAMDISK, RunReport, ServiceTimes
+from .x64 import sim_dtype
 
 # service-time vector layout
 (ST_NET_REMOTE, ST_NET_LOCAL, ST_NET_LATENCY, ST_STORAGE, ST_MANAGER,
  ST_CLIENT, ST_STORAGE_REQ) = range(7)
-
-F64 = torch.float64
 
 
 def st_to_vec(st: ServiceTimes) -> np.ndarray:
@@ -92,10 +95,10 @@ class OpArrays:
 
     res: torch.Tensor      # i32[N]   (the sweep-scan kernel reads i32)
     cls: torch.Tensor      # i64[N]   (an index tensor: int8 cannot index)
-    nbytes: torch.Tensor   # f64[N]
-    reqs: torch.Tensor     # f64[N]
-    extra: torch.Tensor    # f64[N]
-    nlat: torch.Tensor     # f64[N]
+    nbytes: torch.Tensor   # f[N]     (f64, or f32: `x64.sim_dtype`)
+    reqs: torch.Tensor     # f[N]
+    extra: torch.Tensor    # f[N]
+    nlat: torch.Tensor     # f[N]
     deps: torch.Tensor     # i32[N, MAXD]
 
     _NAMES = ("res", "cls", "nbytes", "reqs", "extra", "nlat", "deps")
@@ -103,8 +106,12 @@ class OpArrays:
     @classmethod
     def from_micro_ops(cls, ops: MicroOps, pad_to: Optional[int] = None,
                        perm: Optional[np.ndarray] = None, *,
-                       device: DeviceLike = "cuda") -> "OpArrays":
+                       device: DeviceLike = "cuda",
+                       dtype: Optional[torch.dtype] = None) -> "OpArrays":
+        """``dtype`` (default `x64.sim_dtype()`) is what the f64 arrays
+        are rounded to."""
         dev = resolve_device(device)
+        fdt = _np_float(dtype)
         n = ops.n_ops
         m = pad_to or n
         assert m >= n
@@ -123,10 +130,10 @@ class OpArrays:
 
         return cls(res=prep(ops.res),
                    cls=prep(ops.cls, dtype=np.int64),
-                   nbytes=prep(ops.nbytes),
-                   reqs=prep(ops.reqs),
-                   extra=prep(ops.extra),
-                   nlat=prep(ops.nlat),
+                   nbytes=prep(ops.nbytes, dtype=fdt),
+                   reqs=prep(ops.reqs, dtype=fdt),
+                   extra=prep(ops.extra, dtype=fdt),
+                   nlat=prep(ops.nlat, dtype=fdt),
                    deps=prep(deps, fill=-1))
 
     @classmethod
@@ -153,8 +160,8 @@ class FaultArrays:
     and a per-op death mask. `None` stands in for the healthy case
     everywhere — the healthy path never materialises these tensors."""
 
-    res_mult: torch.Tensor   # f64[R] service-time multiplier per resource
-    dead: torch.Tensor       # f64[N] 1.0 = unservable op (costs DEAD_TIME)
+    res_mult: torch.Tensor   # f[R] service-time multiplier per resource
+    dead: torch.Tensor       # f[N] 1.0 = unservable op (costs DEAD_TIME)
 
     _NAMES = ("res_mult", "dead")
 
@@ -162,11 +169,13 @@ class FaultArrays:
     def from_micro_ops(cls, ops: MicroOps, n_resources: Optional[int] = None,
                        pad_to: Optional[int] = None,
                        perm: Optional[np.ndarray] = None, *,
-                       device: DeviceLike = "cuda") -> "FaultArrays":
+                       device: DeviceLike = "cuda",
+                       dtype: Optional[torch.dtype] = None) -> "FaultArrays":
         """Padded/permuted fault arrays matching an `OpArrays` built with
-        the same ``pad_to``/``perm``. Padded resources multiply by 1 and
-        padded ops are alive, so padding stays inert."""
+        the same ``pad_to``/``perm`` (and ``dtype``). Padded resources
+        multiply by 1 and padded ops are alive, so padding stays inert."""
         dev = resolve_device(device)
+        fdt = _np_float(dtype)
         R = n_resources or ops.n_resources
         n, m = ops.n_ops, pad_to or ops.n_ops
         rm = np.ones(R, dtype=np.float64)
@@ -175,19 +184,22 @@ class FaultArrays:
         dd = np.zeros(m, dtype=np.float64)
         if ops.dead is not None:
             dd[:n] = ops.dead[perm] if perm is not None else ops.dead
-        return cls(res_mult=torch.from_numpy(rm).to(dev),
-                   dead=torch.from_numpy(dd).to(dev))
+        return cls(res_mult=torch.from_numpy(rm.astype(fdt)).to(dev),
+                   dead=torch.from_numpy(dd.astype(fdt)).to(dev))
 
     @classmethod
     def neutral(cls, n_ops: int, n_resources: int, *,
-                device: DeviceLike = "cuda") -> "FaultArrays":
+                device: DeviceLike = "cuda",
+                dtype: Optional[torch.dtype] = None) -> "FaultArrays":
         """All-ones / all-zeros arrays for healthy rows batched alongside
         faulted ones: multiplying by 1.0 and adding 0.0 are exact in
-        f64, so a healthy row simulated through the faulted path is
-        element-wise identical to the healthy path's result."""
+        f64 and in f32, so a healthy row simulated through the faulted
+        path is element-wise identical to the healthy path's result.
+        ``dtype`` (default `x64.sim_dtype()`) must be the batch's."""
         dev = resolve_device(device)
-        return cls(res_mult=torch.ones(n_resources, dtype=F64, device=dev),
-                   dead=torch.zeros(n_ops, dtype=F64, device=dev))
+        dt = sim_dtype() if dtype is None else dtype
+        return cls(res_mult=torch.ones(n_resources, dtype=dt, device=dev),
+                   dead=torch.zeros(n_ops, dtype=dt, device=dev))
 
     @classmethod
     def stack(cls, rows: Sequence["FaultArrays"]) -> "FaultArrays":
@@ -200,6 +212,17 @@ class FaultArrays:
     def expand(self, c: int) -> "FaultArrays":
         return FaultArrays(*(t[None].expand(c, *t.shape).contiguous()
                              for t in _fields(self, self._NAMES)))
+
+
+def _np_float(dtype: Optional[torch.dtype]) -> type:
+    """The NumPy float type the host rounds its f64 arrays to before
+    they become tensors of ``dtype`` (default `x64.sim_dtype()`)."""
+    dt = sim_dtype() if dtype is None else dtype
+    if dt == torch.float64:
+        return np.float64
+    if dt == torch.float32:
+        return np.float32
+    raise TypeError(f"the simulators run in float64 or float32, not {dt}")
 
 
 def faulted(ops: MicroOps) -> bool:
@@ -432,8 +455,12 @@ def simulate_arrays(a: OpArrays, st_vecs: torch.Tensor, *, n_resources: int,
                      stats=stats)
 
 
-def _st_tensor(vecs: np.ndarray, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(vecs, dtype=np.float64)).to(dev)
+def st_tensor(vecs: np.ndarray, dev: torch.device,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Service-time vectors ``[C, 7]`` on ``dev``, rounded to ``dtype``
+    (default `x64.sim_dtype()`) on the host."""
+    return torch.from_numpy(np.ascontiguousarray(
+        vecs, dtype=np.float64).astype(_np_float(dtype))).to(dev)
 
 
 def simulate(ops: MicroOps, st: ServiceTimes, *, exact: bool = False,
@@ -451,11 +478,13 @@ def simulate(ops: MicroOps, st: ServiceTimes, *, exact: bool = False,
     ``use_kernel`` / ``stats``: as in `simulate_arrays`
     (`SweepEngine.simulate_one` passes its engine's)."""
     dev = resolve_device(device)
+    dt = sim_dtype()
     perm = None if exact else scan_order(ops, st)
-    a = OpArrays.from_micro_ops(ops, perm=perm, device=dev).batched()
-    fa = (FaultArrays.from_micro_ops(ops, perm=perm, device=dev).batched()
+    a = OpArrays.from_micro_ops(ops, perm=perm, device=dev, dtype=dt).batched()
+    fa = (FaultArrays.from_micro_ops(ops, perm=perm, device=dev,
+                                     dtype=dt).batched()
           if faulted(ops) else None)
-    makespan, end = simulate_arrays(a, _st_tensor(st_to_vec(st)[None], dev),
+    makespan, end = simulate_arrays(a, st_tensor(st_to_vec(st)[None], dev, dt),
                                     n_resources=ops.n_resources, exact=exact,
                                     f=fa, use_kernel=use_kernel, stats=stats)
     makespan = float(makespan[0].cpu())
@@ -498,20 +527,21 @@ def simulate_batch(ops_list: Sequence[MicroOps], st_list: Sequence[ServiceTimes]
     """
     assert len(ops_list) == len(st_list)
     dev = resolve_device(device)
+    dt = sim_dtype()
     n_max = max(o.n_ops for o in ops_list)
     r_max = max(o.n_resources for o in ops_list)
     perms = [None if exact else scan_order(o, s)
              for o, s in zip(ops_list, st_list)]
     batch = OpArrays.stack([
-        OpArrays.from_micro_ops(o, pad_to=n_max, perm=p, device=dev)
+        OpArrays.from_micro_ops(o, pad_to=n_max, perm=p, device=dev, dtype=dt)
         for o, p in zip(ops_list, perms)])
     fbatch = None
     if any(faulted(o) for o in ops_list):
         fbatch = FaultArrays.stack([
             FaultArrays.from_micro_ops(o, n_resources=r_max, pad_to=n_max,
-                                       perm=p, device=dev)
+                                       perm=p, device=dev, dtype=dt)
             for o, p in zip(ops_list, perms)])
-    st_vecs = _st_tensor(np.stack([st_to_vec(s) for s in st_list]), dev)
+    st_vecs = st_tensor(np.stack([st_to_vec(s) for s in st_list]), dev, dt)
     makespan, _ = simulate_arrays(batch, st_vecs, n_resources=r_max,
                                   exact=exact, f=fbatch)
     return makespan.cpu().numpy()
@@ -523,13 +553,16 @@ def sweep_service_times(ops: MicroOps, st_vecs: np.ndarray, *,
                         ) -> np.ndarray:
     """What-if hardware sweep (§2.1): one DAG, many ServiceTimes vectors."""
     dev = resolve_device(device)
+    dt = sim_dtype()
     perm = None if exact else scan_order(ops, st_ref or PAPER_RAMDISK)
     c = st_vecs.shape[0]
-    batch = OpArrays.from_micro_ops(ops, perm=perm, device=dev).expand(c)
+    batch = OpArrays.from_micro_ops(ops, perm=perm, device=dev,
+                                    dtype=dt).expand(c)
     fbatch = None
     if faulted(ops):
-        fbatch = FaultArrays.from_micro_ops(ops, perm=perm, device=dev).expand(c)
-    makespan, _ = simulate_arrays(batch, _st_tensor(st_vecs, dev),
+        fbatch = FaultArrays.from_micro_ops(ops, perm=perm, device=dev,
+                                            dtype=dt).expand(c)
+    makespan, _ = simulate_arrays(batch, st_tensor(st_vecs, dev, dt),
                                   n_resources=ops.n_resources, exact=exact,
                                   f=fbatch)
     return makespan.cpu().numpy()

@@ -11,9 +11,15 @@
 //     end[i] = fin + lag
 //     makespan = max(makespan, fin)
 //
+// Two float types, one schedule: T = double (the simulators' default) and
+// T = float (REPRO_SIM_X64=0, the mode the TPU kernel ran in on its chip).
+// Every function below that touches a time is a template on T, and the C
+// interface at the end has an entry for each (`_f32` for float).
+//
 // What bounds it on this card: neither bytes nor arithmetic. One op-row
-// moves 44 bytes (res 4, dur 8, lag 8, deps 16 read; end 8 written) and
-// costs eight f64 max/add operations, but every step waits for the one
+// moves 44 bytes in f64 (res 4, dur 8, lag 8, deps 16 read; end 8
+// written; 32 in f32) and costs eight max/add operations, but every step
+// waits for the one
 // before it through avail[res] and end[dep], so a candidate is a chain
 // of N dependent steps whose length is set by the latency of one
 // dependent step. The only parallel axis is the candidate axis.
@@ -109,7 +115,9 @@
 // avail and of the end values, the 0.0 floor, and fins and ends before)
 // plus a dur, every end a fin plus a lag. Every + is the reference's, on
 // the same operands. Compile with -fmad=false so no later mul+add in this
-// file can contract.
+// file can contract. All of this holds for T = float as for T = double:
+// each + and max is one correctly rounded operation of T on the same
+// operands as the reference's, which computes in T too.
 
 #include <cuda_runtime.h>
 
@@ -144,12 +152,15 @@ __device__ __forceinline__ void bar_arrive(int id) {
 // row just before (whose end the chain forwards); SAME, the same resource
 // as the row before (whose fin the chain forwards as avail); and DEP, FWD
 // or SAME (start then waits for that row).
+template <typename T>
 struct Row {
     int4 slot;
-    double pre, dur, lag;
+    T pre, dur, lag;
     unsigned aload, astore;
 };
-static_assert(sizeof(Row) == 48, "rows are 16-byte aligned");
+// 48 bytes for both types (float's 36 pad to int4's 16-byte alignment)
+static_assert(sizeof(Row<double>) == 48, "rows are 16-byte aligned");
+static_assert(sizeof(Row<float>) == 48, "rows are 16-byte aligned");
 constexpr unsigned FWD = 0x80000000u;
 constexpr unsigned DEP = 0x40000000u;
 constexpr unsigned SAME = 0x20000000u;
@@ -159,16 +170,18 @@ constexpr unsigned ADDR = 0x1fffffffu;
 constexpr int ROWS_PER_BUF = TILE_ROWS + 2;
 
 // the staged tile buffers; then avail[R], a 0.0, then the window / end
+template <typename T>
 struct Smem {
-    Row* rows;      // [2][ROWS_PER_BUF]
-    double* avail;  // [R]
-    double* W;      // W[-1] = 0.0; W[i] for END_IN_SMEM, else W[i % WINDOW]
+    Row<T>* rows;   // [2][ROWS_PER_BUF]
+    T* avail;       // [R]
+    T* W;           // W[-1] = 0.0; W[i] for END_IN_SMEM, else W[i % WINDOW]
 };
 
-__device__ __forceinline__ Smem carve(void* raw, int R) {
-    Smem s;
-    s.rows = static_cast<Row*>(raw);
-    s.avail = reinterpret_cast<double*>(s.rows + 2 * ROWS_PER_BUF);
+template <typename T>
+__device__ __forceinline__ Smem<T> carve(void* raw, int R) {
+    Smem<T> s;
+    s.rows = static_cast<Row<T>*>(raw);
+    s.avail = reinterpret_cast<T*>(s.rows + 2 * ROWS_PER_BUF);
     s.W = s.avail + R + 1;
     return s;
 }
@@ -178,21 +191,35 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 }
 // the chain's own loads and stores of avail and the window, by address;
 // volatile keeps them in program order with each other
-__device__ __forceinline__ double lds(unsigned a) {
+template <typename T>
+__device__ __forceinline__ T lds(unsigned a);
+template <>
+__device__ __forceinline__ double lds<double>(unsigned a) {
     double v;
     asm volatile("ld.shared.f64 %0, [%1];" : "=d"(v) : "r"(a));
+    return v;
+}
+template <>
+__device__ __forceinline__ float lds<float>(unsigned a) {
+    float v;
+    asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a));
     return v;
 }
 __device__ __forceinline__ void sts(unsigned a, double v) {
     asm volatile("st.shared.f64 [%0], %1;" ::"r"(a), "d"(v));
 }
+__device__ __forceinline__ void sts(unsigned a, float v) {
+    asm volatile("st.shared.f32 [%0], %1;" ::"r"(a), "f"(v));
+}
 
 // max of two values that are never NaN and never -0.0 (the fast walk,
 // see the head note): a compare and a select, without fmax's NaN handling
-__device__ __forceinline__ double dmax(double a, double b) { return a > b ? a : b; }
+template <typename T>
+__device__ __forceinline__ T dmax(T a, T b) { return a > b ? a : b; }
 // max that is NaN when either operand is, as the reference's maximum is
 // (the general walk, and the stagers' resolved deps in both walks)
-__device__ __forceinline__ double nmax(double a, double b) {
+template <typename T>
+__device__ __forceinline__ T nmax(T a, T b) {
     return (a > b || a != a) ? a : b;
 }
 
@@ -204,12 +231,13 @@ __device__ __forceinline__ int widx(int i) {
 // The chain (warp 0; lane 0 walks, the warp takes part in the barriers).
 // GENERAL picks the walk (see the head note); the general walk writes the
 // makespan itself.
-template <bool END_IN_SMEM, bool GENERAL>
-__device__ __forceinline__ void walk(const Smem& sm, int N, int n_tiles,
-                                     double* __restrict__ makespan) {
+template <typename T, bool END_IN_SMEM, bool GENERAL>
+__device__ __forceinline__ void walk(const Smem<T>& sm, int N, int n_tiles,
+                                     T* __restrict__ makespan) {
     const int lane = threadIdx.x;
+    const T zero = T(0);
     // the last row walked: its fin and lag; the running makespan (general)
-    double fin_last = 0.0, l_last = 0.0, mk = 0.0;
+    T fin_last = zero, l_last = zero, mk = zero;
     const unsigned w0 = smem_addr(sm.W);
     for (int k = 0; k < n_tiles; ++k) {
         const int b = k & 1;
@@ -217,19 +245,20 @@ __device__ __forceinline__ void walk(const Smem& sm, int N, int n_tiles,
         if (lane == 0) {
             const int base = k * TILE_ROWS;
             const int nb = min(TILE_ROWS, N - base);
-            const Row* rw = sm.rows + b * ROWS_PER_BUF;
+            const Row<T>* rw = sm.rows + b * ROWS_PER_BUF;
             // row 0's operands and window values (every row a window slot
             // names was stored before this tile's barrier), row 1's operands
-            double d = rw[0].dur, l = rw[0].lag;
+            T d = rw[0].dur, l = rw[0].lag;
             unsigned as = rw[0].astore;
-            double e0, e1, e2, e3;
+            T e0, e1, e2, e3;
             {
                 const int4 w = rw[0].slot;
-                e0 = lds(w.x), e1 = lds(w.y), e2 = lds(w.z), e3 = lds(w.w);
+                e0 = lds<T>(w.x), e1 = lds<T>(w.y), e2 = lds<T>(w.z),
+                e3 = lds<T>(w.w);
             }
-            double av = lds(rw[0].aload);
+            T av = lds<T>(rw[0].aload);
             int4 w1 = rw[1].slot;
-            double d1 = rw[1].dur, l1 = rw[1].lag;
+            T d1 = rw[1].dur, l1 = rw[1].lag;
             unsigned al1 = rw[1].aload, as1 = rw[1].astore;
 #pragma unroll 2
             for (int li = 0; li < nb; ++li) {
@@ -238,23 +267,23 @@ __device__ __forceinline__ void walk(const Smem& sm, int N, int n_tiles,
                 // No slot names the row just before, and no avail load
                 // its resource (both are forwarded in registers), so
                 // every value loaded here was stored by an earlier step.
-                const Row& r2 = rw[li + 2];
+                const Row<T>& r2 = rw[li + 2];
                 const int4 w2 = r2.slot;
-                const double d2 = r2.dur, l2 = r2.lag;
+                const T d2 = r2.dur, l2 = r2.lag;
                 const unsigned al2 = r2.aload, as2 = r2.astore;
-                const double f0 = lds(w1.x), f1 = lds(w1.y), f2 = lds(w1.z),
-                             f3 = lds(w1.w);
-                const double av1 = lds(al1);
-                double fin;
+                const T f0 = lds<T>(w1.x), f1 = lds<T>(w1.y), f2 = lds<T>(w1.z),
+                        f3 = lds<T>(w1.w);
+                const T av1 = lds<T>(al1);
+                T fin;
                 if constexpr (GENERAL) {
                     // row li as the reference takes it: x, the ready time
                     // floored at 0.0 and avail when no row before forwards
                     // it; y, the row before's end (a dep on it), its fin
                     // (its resource), or the max of both
-                    const double x = nmax(nmax(nmax(e0, e1), nmax(e2, e3)),
-                                          nmax(av, 0.0));
-                    const double end_last = fin_last + l_last;
-                    const double y = (as & FWD)
+                    const T x = nmax(nmax(nmax(e0, e1), nmax(e2, e3)),
+                                     nmax(av, zero));
+                    const T end_last = fin_last + l_last;
+                    const T y = (as & FWD)
                                          ? ((as & SAME) ? nmax(end_last, fin_last) : end_last)
                                          : fin_last;
                     fin = ((as & DEP) ? nmax(x, y) : x) + d;
@@ -263,12 +292,14 @@ __device__ __forceinline__ void walk(const Smem& sm, int N, int n_tiles,
                     // row li. x: what start does not owe to the row just
                     // walked; y: what it does, its end (a dep on it) or its
                     // fin (its resource), and fin <= end since lag >= 0
-                    const double x = dmax(dmax(dmax(e0, e1), dmax(e2, e3)), av);
-                    const double y = fin_last + ((as & FWD) ? l_last : 0.0);
+                    const T x = dmax(dmax(dmax(e0, e1), dmax(e2, e3)), av);
+                    const T y = fin_last + ((as & FWD) ? l_last : zero);
                     fin = ((as & DEP) ? dmax(x, y) : x) + d;
                 }
                 sts(as & ADDR, fin);
-                sts(w0 + 8u * static_cast<unsigned>(widx<END_IN_SMEM>(base + li)), fin + l);
+                sts(w0 + static_cast<unsigned>(sizeof(T)) *
+                             static_cast<unsigned>(widx<END_IN_SMEM>(base + li)),
+                    T(fin + l));
                 fin_last = fin;
                 l_last = l;
                 d = d1, l = l1, as = as1;
@@ -284,14 +315,15 @@ __device__ __forceinline__ void walk(const Smem& sm, int N, int n_tiles,
     bar_arrive(BAR_DONE);
 }
 
-template <bool END_IN_SMEM>
+template <typename T, bool END_IN_SMEM>
 __global__ void __launch_bounds__(THREADS)
-sweep_scan_kernel(const int* __restrict__ res, const double* __restrict__ dur,
-                  const double* __restrict__ lag, const int* __restrict__ deps,
-                  double* __restrict__ makespan, double* __restrict__ end_out, int N,
+sweep_scan_kernel(const int* __restrict__ res, const T* __restrict__ dur,
+                  const T* __restrict__ lag, const int* __restrict__ deps,
+                  T* __restrict__ makespan, T* __restrict__ end_out, int N,
                   int R) {
     extern __shared__ int4 smem[];
-    const Smem sm = carve(smem, R);
+    const Smem<T> sm = carve<T>(smem, R);
+    const T zero_v = T(0);
     const int tid = threadIdx.x;
     const size_t row = static_cast<size_t>(blockIdx.x) * static_cast<size_t>(N);
     res += row;
@@ -300,8 +332,8 @@ sweep_scan_kernel(const int* __restrict__ res, const double* __restrict__ dur,
     const int4* deps4 = reinterpret_cast<const int4*>(deps) + row;
     end_out += row;
 
-    for (int i = tid; i < R; i += THREADS) sm.avail[i] = 0.0;
-    if (tid == 0) sm.W[-1] = 0.0;
+    for (int i = tid; i < R; i += THREADS) sm.avail[i] = zero_v;
+    if (tid == 0) sm.W[-1] = zero_v;
     // rows never staged hold valid addresses too (the buffers' own start;
     // the chain loads through them two rows ahead and never walks them)
     for (int i = tid; i < 2 * ROWS_PER_BUF * 3; i += THREADS)
@@ -311,14 +343,15 @@ sweep_scan_kernel(const int* __restrict__ res, const double* __restrict__ dur,
     // set, and every thread knows the walk.
     bool off = false;
 #pragma unroll 8
-    for (int i = tid; i < N; i += THREADS) off |= !(__ldg(dur + i) >= 0.0) | !(__ldg(lag + i) >= 0.0);
+    for (int i = tid; i < N; i += THREADS)
+        off |= !(__ldg(dur + i) >= zero_v) | !(__ldg(lag + i) >= zero_v);
     const bool general = __syncthreads_or(off) != 0;
 
     const int n_tiles = (N + TILE_ROWS - 1) / TILE_ROWS;
     if (tid < 32) {
         // ---- the chain: lane 0 walks, the warp takes part in the barriers
-        if (general) walk<END_IN_SMEM, true>(sm, N, n_tiles, makespan);
-        else walk<END_IN_SMEM, false>(sm, N, n_tiles, makespan);
+        if (general) walk<T, END_IN_SMEM, true>(sm, N, n_tiles, makespan);
+        else walk<T, END_IN_SMEM, false>(sm, N, n_tiles, makespan);
     } else {
         // ---- the stagers
         const int st = tid - 32;
@@ -343,7 +376,7 @@ sweep_scan_kernel(const int* __restrict__ res, const double* __restrict__ dur,
             const int nb = min(TILE_ROWS, N - base);
             int4 dv[ROWS_PER_STAGER];
             int rv[ROWS_PER_STAGER], rp[ROWS_PER_STAGER];
-            double duv[ROWS_PER_STAGER], lav[ROWS_PER_STAGER];
+            T duv[ROWS_PER_STAGER], lav[ROWS_PER_STAGER];
 #pragma unroll
             for (int j = 0; j < ROWS_PER_STAGER; ++j) {
                 const int li = st + j * STAGERS;
@@ -362,10 +395,10 @@ sweep_scan_kernel(const int* __restrict__ res, const double* __restrict__ dur,
                 if (li >= nb) continue;
                 const int i = base + li;
                 const int dd[MAXD] = {dv[j].x, dv[j].y, dv[j].z, dv[j].w};
-                Row& rw = sm.rows[b * ROWS_PER_BUF + li];
+                Row<T>& rw = sm.rows[b * ROWS_PER_BUF + li];
                 unsigned slot[MAXD];
                 bool fwd = false;
-                double pre = 0.0;
+                T pre = zero_v;
 #pragma unroll
                 for (int q = 0; q < MAXD; ++q) {
                     const int d = dd[q];
@@ -376,7 +409,7 @@ sweep_scan_kernel(const int* __restrict__ res, const double* __restrict__ dur,
                     } else if (d < lo) {                // final: resolved here
                         // tile k - 2 is still in the window; what lies below
                         // it was copied out before this tile's EMPTY barrier
-                        const double e = (END_IN_SMEM || d >= lo - TILE_ROWS)
+                        const T e = (END_IN_SMEM || d >= lo - TILE_ROWS)
                                              ? sm.W[widx<END_IN_SMEM>(d)]
                                              : __ldcg(end_out + d);
                         pre = nmax(pre, e);
@@ -412,7 +445,7 @@ sweep_scan_kernel(const int* __restrict__ res, const double* __restrict__ dur,
         bar_sync(BAR_DONE);
         for (int t = max(0, n_tiles - 2); t < n_tiles; ++t) copy_out(t);
         if (!general && st < 32) {
-            double mk = 0.0;
+            T mk = zero_v;
             for (int r = st; r < R; r += 32) mk = dmax(mk, sm.avail[r]);
 #pragma unroll
             for (int off = 16; off > 0; off >>= 1)
@@ -422,11 +455,10 @@ sweep_scan_kernel(const int* __restrict__ res, const double* __restrict__ dur,
     }
 }
 
-template <bool END_IN_SMEM>
-cudaError_t launch(const int* res, const double* dur, const double* lag, const int* deps,
-                   double* makespan, double* end, int C, int N, int R, size_t smem_bytes,
-                   cudaStream_t stream) {
-    auto kernel = sweep_scan_kernel<END_IN_SMEM>;
+template <typename T, bool END_IN_SMEM>
+cudaError_t launch(const int* res, const T* dur, const T* lag, const int* deps, T* makespan,
+                   T* end, int C, int N, int R, size_t smem_bytes, cudaStream_t stream) {
+    auto kernel = sweep_scan_kernel<T, END_IN_SMEM>;
     if (smem_bytes > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes));
@@ -460,16 +492,38 @@ __global__ void chain_probe_kernel(double* out, int steps) {
     out[0] = mk;
 }
 
+template <typename T>
+int base_smem_bytes(int R) {
+    return static_cast<int>(2 * ROWS_PER_BUF * sizeof(Row<T>) + sizeof(T) * (R + 1 + WINDOW));
+}
+
+template <typename T>
+int launch_any(const void* res, const void* dur, const void* lag, const void* deps,
+               void* makespan, void* end, int C, int N, int R, int end_in_smem, void* stream) {
+    if (C <= 0 || N <= 0 || R <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t base = static_cast<size_t>(base_smem_bytes<T>(R));
+    auto s = static_cast<cudaStream_t>(stream);
+    auto ri = static_cast<const int*>(res);
+    auto di = static_cast<const int*>(deps);
+    auto du = static_cast<const T*>(dur);
+    auto la = static_cast<const T*>(lag);
+    auto mk = static_cast<T*>(makespan);
+    auto en = static_cast<T*>(end);
+    if (end_in_smem)
+        return static_cast<int>(launch<T, true>(ri, du, la, di, mk, en, C, N, R,
+                                                base + sizeof(T) * static_cast<size_t>(N), s));
+    return static_cast<int>(launch<T, false>(ri, du, la, di, mk, en, C, N, R, base, s));
+}
+
 }  // namespace
 
 extern "C" {
 
 // Shared-memory bytes the kernel needs besides end[N]: two staged tiles,
 // avail[R], the 0.0 and the device-memory regime's window. The wrapper
-// adds 8*N when it picks the shared-memory regime.
-int sweep_scan_base_smem_bytes(int R) {
-    return static_cast<int>(2 * ROWS_PER_BUF * sizeof(Row) + sizeof(double) * (R + 1 + WINDOW));
-}
+// adds sizeof(T)*N when it picks the shared-memory regime.
+int sweep_scan_base_smem_bytes(int R) { return base_smem_bytes<double>(R); }
+int sweep_scan_base_smem_bytes_f32(int R) { return base_smem_bytes<float>(R); }
 
 int sweep_scan_maxd() { return MAXD; }
 int sweep_scan_tile_rows() { return TILE_ROWS; }
@@ -480,20 +534,16 @@ int sweep_scan_tile_rows() { return TILE_ROWS; }
 int sweep_scan_launch(const void* res, const void* dur, const void* lag, const void* deps,
                       void* makespan, void* end, int C, int N, int R, int end_in_smem,
                       void* stream) {
-    if (C <= 0 || N <= 0 || R <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t base = static_cast<size_t>(sweep_scan_base_smem_bytes(R));
-    auto s = static_cast<cudaStream_t>(stream);
-    if (end_in_smem) {
-        return static_cast<int>(launch<true>(
-            static_cast<const int*>(res), static_cast<const double*>(dur),
-            static_cast<const double*>(lag), static_cast<const int*>(deps),
-            static_cast<double*>(makespan), static_cast<double*>(end), C, N, R,
-            base + sizeof(double) * static_cast<size_t>(N), s));
-    }
-    return static_cast<int>(launch<false>(
-        static_cast<const int*>(res), static_cast<const double*>(dur),
-        static_cast<const double*>(lag), static_cast<const int*>(deps),
-        static_cast<double*>(makespan), static_cast<double*>(end), C, N, R, base, s));
+    return launch_any<double>(res, dur, lag, deps, makespan, end, C, N, R, end_in_smem,
+                              stream);
+}
+
+// The same in f32: dur/lag f32[C,N] -> makespan f32[C], end f32[C,N].
+int sweep_scan_launch_f32(const void* res, const void* dur, const void* lag, const void* deps,
+                          void* makespan, void* end, int C, int N, int R, int end_in_smem,
+                          void* stream) {
+    return launch_any<float>(res, dur, lag, deps, makespan, end, C, N, R, end_in_smem,
+                             stream);
 }
 
 // One thread, `steps` dependent steps in shared memory (see

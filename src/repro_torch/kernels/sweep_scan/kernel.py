@@ -1,7 +1,8 @@
 """Build, bind and launch the CUDA sweep-scan kernel.
 
 The source is `csrc/sweep_scan.cu` (see its head note for what it
-replaces and how it is laid out). It is compiled by `nvcc` for
+replaces and how it is laid out), one schedule instantiated for f64 and
+for f32 (``REPRO_SIM_X64=0``, the reference TPU kernel's mode). It is compiled by `nvcc` for
 ``sm_90a`` at first use through `kernels.build` and bound with `ctypes`
 (`argtypes` set: pointers and the stream are ``c_void_p``). Nothing here
 runs at import, so hosts without a CUDA toolkit can import the module.
@@ -34,10 +35,13 @@ def load() -> ctypes.CDLL:
     lib = build.load_library("sweep_scan", [SOURCE], EXTRA_FLAGS)
     if getattr(lib.sweep_scan_launch, "argtypes", None) is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sweep_scan_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
-        lib.sweep_scan_launch.restype = ctypes.c_int
-        lib.sweep_scan_base_smem_bytes.argtypes = [i]
-        lib.sweep_scan_base_smem_bytes.restype = ctypes.c_int
+        for name in ("sweep_scan_launch", "sweep_scan_launch_f32"):
+            getattr(lib, name).argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+            getattr(lib, name).restype = ctypes.c_int
+        for name in ("sweep_scan_base_smem_bytes",
+                     "sweep_scan_base_smem_bytes_f32"):
+            getattr(lib, name).argtypes = [i]
+            getattr(lib, name).restype = ctypes.c_int
         lib.sweep_scan_chain_probe.argtypes = [p, i, p]
         lib.sweep_scan_chain_probe.restype = ctypes.c_int
         for name in ("sweep_scan_maxd", "sweep_scan_tile_rows"):
@@ -50,12 +54,31 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+# the float types the kernel is instantiated for
+FLOAT_TYPES = (torch.float64, torch.float32)
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    """The suffix of ``dtype``'s entry points in the library."""
+    return "" if dtype == torch.float64 else "_f32"
+
+
+def base_smem_bytes(n_resources: int, dtype: torch.dtype = torch.float64) -> int:
+    """Shared-memory bytes one block needs besides ``end[N]`` (two
+    staged tiles, avail, the window) for ``dtype``; builds the library."""
+    return getattr(load(), "sweep_scan_base_smem_bytes" + _suffix(dtype))(
+        n_resources)
+
+
 def check_inputs(res: torch.Tensor, dur: torch.Tensor, lag: torch.Tensor,
                  deps: torch.Tensor, n_resources: int) -> Tuple[int, int]:
-    """Validate what the kernel takes; returns (C, N). Raises
-    `TypeError` / `ValueError` on anything else."""
-    for name, t, dt in (("res", res, torch.int32), ("dur", dur, torch.float64),
-                        ("lag", lag, torch.float64), ("deps", deps, torch.int32)):
+    """Validate what the kernel takes; returns (C, N). ``dur`` and
+    ``lag`` are of one float type, f64 or f32. Raises `TypeError` /
+    `ValueError` on anything else."""
+    if dur.dtype not in FLOAT_TYPES:
+        raise TypeError(f"dur must be float64 or float32, got {dur.dtype}")
+    for name, t, dt in (("res", res, torch.int32), ("dur", dur, dur.dtype),
+                        ("lag", lag, dur.dtype), ("deps", deps, torch.int32)):
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
         if not t.is_contiguous():
@@ -81,7 +104,9 @@ def sweep_scan_cuda(res: torch.Tensor, dur: torch.Tensor, lag: torch.Tensor,
                     max_smem_bytes: int = MAX_SMEM_BYTES
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on CUDA tensors: res i32[C, N], dur/lag
-    f64[C, N], deps i32[C, N, MAXD] -> (makespan f64[C], end f64[C, N]).
+    f[C, N], deps i32[C, N, MAXD] -> (makespan f[C], end f[C, N]), with
+    f the float type of dur and lag (f64 or f32: the kernel's two
+    instantiations).
 
     Indices are trusted, as in the reference: ``0 <= res < n_resources``
     and ``deps < N``. The result equals the plain version's to the bit on
@@ -97,23 +122,24 @@ def sweep_scan_cuda(res: torch.Tensor, dur: torch.Tensor, lag: torch.Tensor,
     if res.device.type != "cuda":
         raise ValueError(f"sweep_scan_cuda needs CUDA tensors, got {res.device}")
     lib = load()
-    base = lib.sweep_scan_base_smem_bytes(n_resources)
+    suffix = _suffix(dur.dtype)
+    base = getattr(lib, "sweep_scan_base_smem_bytes" + suffix)(n_resources)
     if base > min(max_smem_bytes, MAX_SMEM_BYTES):
         raise ValueError(f"n_resources={n_resources} needs {base} bytes of "
                          f"shared memory, cap is {max_smem_bytes}")
-    end_in_smem = base + 8 * N <= min(max_smem_bytes, MAX_SMEM_BYTES)
-    makespan = torch.empty((C,), dtype=torch.float64, device=res.device)
-    end = torch.empty((C, N), dtype=torch.float64, device=res.device)
+    end_in_smem = (base + dur.element_size() * N
+                   <= min(max_smem_bytes, MAX_SMEM_BYTES))
+    makespan = torch.empty((C,), dtype=dur.dtype, device=res.device)
+    end = torch.empty((C, N), dtype=dur.dtype, device=res.device)
     with torch.cuda.device(res.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sweep_scan_launch(res.data_ptr(), dur.data_ptr(),
-                                    lag.data_ptr(), deps.data_ptr(),
-                                    makespan.data_ptr(), end.data_ptr(),
-                                    C, N, n_resources, int(end_in_smem),
-                                    stream)
+        err = getattr(lib, "sweep_scan_launch" + suffix)(
+            res.data_ptr(), dur.data_ptr(), lag.data_ptr(), deps.data_ptr(),
+            makespan.data_ptr(), end.data_ptr(), C, N, n_resources,
+            int(end_in_smem), stream)
     if err != 0:
         raise RuntimeError(f"sweep_scan kernel launch failed: cudaError {err} "
-                           f"(C={C}, N={N}, R={n_resources}, "
+                           f"(C={C}, N={N}, R={n_resources}, {dur.dtype}, "
                            f"end_in_smem={end_in_smem})")
     return makespan, end
 

@@ -36,8 +36,8 @@ def sweep_scan(res: torch.Tensor, dur: torch.Tensor, lag: torch.Tensor,
                deps: torch.Tensor, *, n_resources: int, use_kernel: bool,
                stats=None, max_smem_bytes: int = MAX_SMEM_BYTES
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched FIFO scan: res i32[C, N], dur/lag f64[C, N],
-    deps i32[C, N, MAXD] -> (makespan f64[C], end f64[C, N]).
+    """Batched FIFO scan: res i32[C, N], dur/lag f[C, N] (f64 or f32,
+    one type), deps i32[C, N, MAXD] -> (makespan f[C], end f[C, N]).
 
     ``use_kernel`` is decided by the caller; both paths are element-wise
     equal on every input (see `kernel.sweep_scan_cuda`). ``stats``, when

@@ -21,8 +21,8 @@ def sweep_scan_ref(res: torch.Tensor, dur: torch.Tensor, lag: torch.Tensor,
                    deps: torch.Tensor, *, n_resources: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched (candidate-major) reference: res i32[C, N], dur/lag
-    f64[C, N], deps i32[C, N, MAXD] (-1 = no dep) ->
-    (makespan f64[C], end f64[C, N]).
+    f[C, N], deps i32[C, N, MAXD] (-1 = no dep) ->
+    (makespan f[C], end f[C, N]), in the float type of dur (f64 or f32).
 
     Each op starts at max(dep completion times, its resource's
     availability); the resource is then busy until start + dur, and the

@@ -151,6 +151,73 @@ def test_kernel_equals_plain_version_on_values_of_any_sign(value):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("value", [None, -0.5, -1e-30, -0.0, float("nan"),
+                                   float("inf"), -float("inf")])
+def test_f32_kernel_equals_plain_version(value):
+    """K1's f32 instantiation on boundary, multi-tile and adversarial
+    buckets, in both memory regimes (their f32 caps): `torch.equal` to
+    the plain version in f32, NaN where it is NaN; with ``value`` at
+    seeded places of dur and lag and one candidate's lags negative (the
+    general walk), or none (the fast walk)."""
+    need_card()
+    buckets = [adversarial_bucket(n, c, r, s, t_kernel.TILE_ROWS)
+               for n, c, r, s in [(600, 4, 8, 9), (1100, 3, 5, 0)]]
+    if value is None:
+        buckets += [random_bucket(*shape) for shape in SHAPES]
+    for res, dur, lag, deps in buckets:
+        n_cand, n_ops = res.shape
+        n_res = int(res.max()) + 1
+        if value is not None:
+            rng = np.random.default_rng(n_ops)
+            for arr in (dur, lag):
+                arr[rng.integers(0, n_cand, 8),
+                    rng.integers(0, n_ops, 8)] = value
+            lag[-1] -= 0.05
+        args = [torch.from_numpy(res).cuda(),
+                torch.from_numpy(dur).cuda().float(),
+                torch.from_numpy(lag).cuda().float(),
+                torch.from_numpy(deps).cuda()]
+        mk_p, end_p = t_ops.sweep_scan(*args, n_resources=n_res,
+                                       use_kernel=False)
+        base = t_kernel.base_smem_bytes(n_res, torch.float32)
+        for cap in (t_kernel.MAX_SMEM_BYTES, base):
+            stats = CacheStats()
+            mk_k, end_k = t_ops.sweep_scan(*args, n_resources=n_res,
+                                           use_kernel=True, stats=stats,
+                                           max_smem_bytes=cap)
+            torch.cuda.synchronize()
+            assert stats.kernel_launches == 1
+            assert mk_k.dtype == end_k.dtype == torch.float32
+            assert _same_values(mk_k, mk_p) and _same_values(end_k, end_p)
+
+
+@pytest.mark.gpu
+def test_f32_sweep_on_the_card_equals_sweep_on_the_cpu(monkeypatch):
+    """``REPRO_SIM_X64=0`` end to end: the same faulted grid through a
+    CUDA session (K1 in f32) and a CPU session (plain version in f32),
+    exact verification included."""
+    need_card()
+    monkeypatch.setenv("REPRO_SIM_X64", "0")
+    cands = T.grid(n_nodes=[6], chunk_sizes=[T.MB], replications=(1, 2),
+                   faults=(None, T.parse_faults("disk=0:8,kill=1@40")))
+
+    def workflow_for(c):
+        return TW.blast(c.n_app, n_queries=6, db_mb=8)
+
+    with T.SweepSession() as gpu, T.SweepSession(device="cpu") as cpu:
+        eg = T.explore(workflow_for, cands, T.PAPER_RAMDISK, verify_top_k=2,
+                       session=gpu)
+        ec = T.explore(workflow_for, cands, T.PAPER_RAMDISK, verify_top_k=2,
+                       session=cpu)
+        assert gpu.stats.kernel_launches > 0
+        assert gpu.stats.kernel_fallbacks == 0
+        assert all(k[7] == torch.float32 for k in gpu.engine.cache_keys())
+    assert [e.index for e in eg] == [e.index for e in ec]
+    assert [e.scan_makespan for e in eg] == [e.scan_makespan for e in ec]
+    assert [e.makespan for e in eg] == [e.makespan for e in ec]
+
+
+@pytest.mark.gpu
 def test_negative_net_latency_on_the_card_equals_the_plain_path():
     """Service times that make negative lags or NaN durations: every scan
     bucket launches the kernel under "auto" and "cuda" (no fallback) and

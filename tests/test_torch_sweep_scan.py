@@ -426,11 +426,15 @@ def test_entry_points_raise_without_a_card():
 # in the result. Each candidate takes one of the kernel's two walks: the
 # fast one when all its dur and lag are >= 0, else the general one (the
 # 0.0 floor on avail, the row before's fin and end both kept when it is
-# a dep on the same resource, a running makespan).
+# a dep on the same resource, a running makespan). The model computes in
+# the float type of its inputs (NumPy scalars of f64 or f32, each + one
+# correctly rounded operation of that type), as the kernel's two
+# instantiations do.
 
 def nmax(*vals):
-    """max that propagates NaN (Python's max may drop it)."""
-    return float(np.max(vals))
+    """max that propagates NaN (Python's max may drop it), in the type
+    of its operands (all of one NumPy float type)."""
+    return np.max(np.asarray(vals))
 
 
 def tile_schedule_scan(res, dur, lag, deps, n_res, tile, ring):
@@ -439,16 +443,18 @@ def tile_schedule_scan(res, dur, lag, deps, n_res, tile, ring):
     before, and reading 0.0, and of the rows whose resource the chain
     forwards from the row before."""
     C, N = res.shape
-    mk = np.zeros(C)
-    end = np.zeros((C, N))
+    dt = dur.dtype
+    zero = dt.type(0)
+    mk = np.zeros(C, dt)
+    end = np.zeros((C, N), dt)
     counts = {"stager": 0, "window": 0, "forward": 0, "zero": 0,
               "same_resource": 0}
     n_tiles = -(-N // tile)
     for c in range(C):
         general = not ((dur[c] >= 0).all() and (lag[c] >= 0).all())
-        final = np.full(N, np.nan)              # end values the chain wrote
-        win = np.full(2 * tile if ring else N, np.nan)
-        avail = np.zeros(n_res)
+        final = np.full(N, np.nan, dt)          # end values the chain wrote
+        win = np.full(2 * tile if ring else N, np.nan, dt)
+        avail = np.zeros(n_res, dt)
         walked = 0
 
         def stage(k):
@@ -456,7 +462,7 @@ def tile_schedule_scan(res, dur, lag, deps, n_res, tile, ring):
             assert walked >= max(lo, 0)        # the EMPTY barrier's promise
             rows = []
             for i in range(base, min(base + tile, N)):
-                pre, slots, fwd = 0.0, [], False
+                pre, slots, fwd = zero, [], False
                 for d in deps[c, i]:
                     if d < 0 or d >= i:
                         counts["zero"] += 1
@@ -489,16 +495,16 @@ def tile_schedule_scan(res, dur, lag, deps, n_res, tile, ring):
             avail[res] (0.0 when it is forwarded), which the general walk
             floors at 0.0."""
             pre, slots, _, same = rows[li]
-            av = 0.0 if same else avail[res[c, k * tile + li]]
+            av = zero if same else avail[res[c, k * tile + li]]
             if general:
-                av = nmax(av, 0.0)
+                av = nmax(av, zero)
             free = [pre] if len(slots) < MAXD else []
             return nmax(av, *free, *(win[s] for s in slots))
 
         copied = [None] * N                     # ends the stagers copied out
 
         staged = stage(0)
-        fin_last = l_last = mk_run = 0.0        # the chain's registers
+        fin_last = l_last = mk_run = zero       # the chain's registers
         for k in range(n_tiles):
             if k >= 2:                          # tile k - 2, out of the ring
                 for i in range((k - 2) * tile, (k - 1) * tile):
@@ -520,7 +526,7 @@ def tile_schedule_scan(res, dur, lag, deps, n_res, tile, ring):
                     if fwd and same:
                         y = nmax(y, fin_last)
                 else:
-                    y = fin_last + (l_last if fwd else 0.0)
+                    y = fin_last + (l_last if fwd else zero)
                 fin = (nmax(x, y) if fwd or same else x) + dur[c, i]
                 mk_run = nmax(mk_run, fin)
                 avail[res[c, i]] = fin
@@ -533,7 +539,7 @@ def tile_schedule_scan(res, dur, lag, deps, n_res, tile, ring):
         # the fast walk's makespan: a resource's fin only grows, so the
         # max over the ops of fin is the max of the final avail; the
         # general walk keeps it running
-        mk[c] = mk_run if general else max(0.0, avail.max())
+        mk[c] = mk_run if general else nmax(zero, avail.max())
     return mk, end, counts
 
 
