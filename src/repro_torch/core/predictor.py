@@ -127,9 +127,19 @@ class Predictor:
                 profiles: Sequence[ServiceTimes]) -> np.ndarray:
         """§2.1 what-if exploration: same deployment, hypothetical hardware
         (e.g. SSDs) — one DAG, many service-time vectors, one batched
-        call."""
+        call. The session's tracer records the question as a ``what_if``
+        span (its DAG lookup included) over ``what_if.*`` parts, and the
+        session's `CacheStats` count the scan's kernel launches."""
+        sess = self._session()
+        tracer = sess.tracer
+        t0 = tracer.clock()
         ops = self.compile(wf, cfg)
-        vecs = np.stack([torch_sim.st_to_vec(p) for p in profiles])
-        return torch_sim.sweep_service_times(ops, vecs,
-                                             st_ref=self.service_times,
-                                             device=self._device())
+        with tracer.span("what_if.vectors", phase="host-prep"):
+            vecs = np.stack([torch_sim.st_to_vec(p) for p in profiles])
+        out = torch_sim.sweep_service_times(ops, vecs,
+                                            st_ref=self.service_times,
+                                            device=self._device(),
+                                            tracer=tracer, stats=sess.stats)
+        tracer.record("what_if", t0, tracer.clock(), phase="what-if",
+                      ops=ops.n_ops, profiles=len(profiles))
+        return out

@@ -97,7 +97,7 @@ class _InlineRun:
                 self._ops = self._cache.compile_grid(
                     lambda s: s.wf, self._specs,
                     locality_aware=self._locality_aware,
-                    workers=self._compile_workers)
+                    workers=self._compile_workers, tracer=self._tracer)
         return self._ops
 
     def simulate(self, idxs: Optional[Sequence[int]] = None, *,

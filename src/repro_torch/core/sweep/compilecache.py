@@ -48,6 +48,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from ...obs.trace import NULL_TRACER
 from ..compile import MAXD, MicroOps, compile_workflow
 from ..types import CTRL_BYTES, StorageConfig, Workflow
 
@@ -228,7 +229,8 @@ class CompileCache:
     # -- grid compile ----------------------------------------------------------
     def compile_grid(self, workflow_for: Callable, candidates: Sequence, *,
                      locality_aware: bool = True,
-                     workers: Optional[int] = None) -> List[MicroOps]:
+                     workers: Optional[int] = None,
+                     tracer=None) -> List[MicroOps]:
         """Compile a candidate grid, one `compile_workflow` per structural
         equivalence class; every class member shares the class DAG.
 
@@ -237,16 +239,27 @@ class CompileCache:
         one candidate. ``workers`` > 1 compiles cold classes on a thread
         pool. Returns one `MicroOps` per candidate, aligned with the
         input order (duplicates are shared references, not copies).
+        ``tracer`` records a ``compile_dag`` span (meta ``ops``,
+        ``tasks``) per `compile_workflow`, under the caller's request id
+        on the pool's threads too.
         """
+        tracer = NULL_TRACER if tracer is None else tracer
         with self._mu:
             self.stats.grid_calls += 1
             self.stats.grid_candidates += len(candidates)
         wfs = [workflow_for(c) for c in candidates]
         cfgs = [c.to_config() for c in candidates]
+        # a request scope is thread-local: carry it into the pool's threads
+        rid = tracer.current_request()
+        scope = {} if rid is None else {"req": rid}
 
         def build(i: int) -> MicroOps:
-            return compile_workflow(wfs[i], cfgs[i],
-                                    locality_aware=locality_aware)
+            t0 = tracer.clock()
+            ops = compile_workflow(wfs[i], cfgs[i],
+                                   locality_aware=locality_aware)
+            tracer.record("compile_dag", t0, tracer.clock(), phase="compile",
+                          ops=ops.n_ops, tasks=len(wfs[i].tasks), **scope)
+            return ops
 
         def build_many(idxs: Sequence[int]) -> List[MicroOps]:
             if workers is not None and workers > 1 and len(idxs) > 1:

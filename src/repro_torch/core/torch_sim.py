@@ -50,6 +50,7 @@ import torch
 from ..env import DeviceLike, resolve_device
 from ..kernels.sweep_scan import ops as sweep_scan_ops
 from ..obs.timeline import Timeline
+from ..obs.trace import NULL_TRACER
 from .compile import (CLS_CLIENT, CLS_MANAGER, CLS_NET_LOCAL, CLS_NET_REMOTE,
                       CLS_STORAGE, N_CLS, MicroOps)
 from .faults import DEAD_TIME
@@ -549,20 +550,28 @@ def simulate_batch(ops_list: Sequence[MicroOps], st_list: Sequence[ServiceTimes]
 
 def sweep_service_times(ops: MicroOps, st_vecs: np.ndarray, *,
                         st_ref: Optional[ServiceTimes] = None,
-                        exact: bool = False, device: DeviceLike = "cuda"
-                        ) -> np.ndarray:
-    """What-if hardware sweep (§2.1): one DAG, many ServiceTimes vectors."""
+                        exact: bool = False, device: DeviceLike = "cuda",
+                        tracer=None, stats=None) -> np.ndarray:
+    """What-if hardware sweep (§2.1): one DAG, many ServiceTimes vectors.
+    ``tracer`` records the host parts (``what_if.scan_order``,
+    ``what_if.arrays``) and the scan with its copy back
+    (``what_if.scan``); ``stats`` counts kernel launches, as in
+    `simulate_arrays`."""
+    tracer = NULL_TRACER if tracer is None else tracer
     dev = resolve_device(device)
     dt = sim_dtype()
-    perm = None if exact else scan_order(ops, st_ref or PAPER_RAMDISK)
+    with tracer.span("what_if.scan_order", phase="host-prep"):
+        perm = None if exact else scan_order(ops, st_ref or PAPER_RAMDISK)
     c = st_vecs.shape[0]
-    batch = OpArrays.from_micro_ops(ops, perm=perm, device=dev,
-                                    dtype=dt).expand(c)
-    fbatch = None
-    if faulted(ops):
-        fbatch = FaultArrays.from_micro_ops(ops, perm=perm, device=dev,
-                                            dtype=dt).expand(c)
-    makespan, _ = simulate_arrays(batch, st_tensor(st_vecs, dev, dt),
-                                  n_resources=ops.n_resources, exact=exact,
-                                  f=fbatch)
-    return makespan.cpu().numpy()
+    with tracer.span("what_if.arrays", phase="host-prep"):
+        batch = OpArrays.from_micro_ops(ops, perm=perm, device=dev,
+                                        dtype=dt).expand(c)
+        fbatch = None
+        if faulted(ops):
+            fbatch = FaultArrays.from_micro_ops(ops, perm=perm, device=dev,
+                                                dtype=dt).expand(c)
+        sv = st_tensor(st_vecs, dev, dt)
+    with tracer.span("what_if.scan", phase="device-sim"):
+        makespan, _ = simulate_arrays(batch, sv, n_resources=ops.n_resources,
+                                      exact=exact, f=fbatch, stats=stats)
+        return makespan.cpu().numpy()

@@ -16,6 +16,13 @@ engine/cache operations (counter-asserted by tests/test_obs.py — zero
 extra compiles, zero extra batch calls, bit-identical results), and the
 per-call overhead is one attribute lookup and an empty ``with`` block.
 
+Request scope: ``with tracer.request(rid):`` tags every span the
+current thread records inside it with ``("req", rid)`` in its meta, and
+`Tracer.record` files an interval whose ends were taken in different
+threads (both on `Tracer.clock`). A span's parent is the innermost span
+of the same ``req`` that encloses it on the same track; spans carry no
+parent field.
+
 Ownership rule (enforced by tools/check_no_global_state.py): a *real*
 `Tracer` is mutable state and therefore always session-owned — passed
 in via ``SweepSession(tracer=...)`` — never a module-level singleton.
@@ -24,10 +31,11 @@ sound.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
-from dataclasses import dataclass, field
-from typing import Any, Dict, Iterable, List, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Any, Iterable, Iterator, List, Tuple
 
 # the tuple layout spans travel in across the multiproc pickle boundary:
 # (name, start_s, dur_s, phase, meta-kv-pairs) — track is assigned by the
@@ -110,19 +118,47 @@ class Tracer:
     """
 
     enabled = True
+    # the clock every span is taken on; `record` takes its ends from it
+    clock = staticmethod(time.perf_counter)
 
     def __init__(self, track: str = "host"):
         self.track = track
         self._epoch = time.perf_counter()
         self._spans: List[Span] = []
         self._mu = threading.Lock()
+        self._scope = threading.local()    # .req: this thread's request id
 
     # -- recording -------------------------------------------------------------
     def span(self, name: str, *, phase: str = "", **meta) -> _SpanCtx:
         return _SpanCtx(self, name, phase, tuple(sorted(meta.items())))
 
+    def record(self, name: str, t0: float, t1: float, *, phase: str = "",
+               **meta) -> None:
+        """An interval whose ends were read from `clock` elsewhere, such
+        as a queue wait that starts in one thread and ends in another."""
+        self._record(name, t0, t1 - t0, phase, tuple(sorted(meta.items())))
+
+    @contextlib.contextmanager
+    def request(self, rid: Any) -> Iterator[None]:
+        """Tag every span this thread records inside with ``req=rid``
+        (a span given its own ``req`` keeps it). Thread-local: work
+        handed to another thread carries the id explicitly."""
+        outer = getattr(self._scope, "req", None)
+        self._scope.req = rid
+        try:
+            yield
+        finally:
+            self._scope.req = outer
+
+    def current_request(self) -> Any:
+        """The request id this thread records under (None outside)."""
+        return getattr(self._scope, "req", None)
+
     def _record(self, name: str, t0_abs: float, dur: float, phase: str,
                 meta: Tuple[Tuple[str, Any], ...]) -> None:
+        rid = getattr(self._scope, "req", None)
+        if rid is not None and all(k != "req" for k, _ in meta):
+            meta = tuple(sorted(meta + (("req", rid),)))
         s = Span(name=name, start=t0_abs - self._epoch, dur=dur,
                  track=self.track, phase=phase, meta=meta)
         with self._mu:
@@ -161,13 +197,6 @@ class Tracer:
         payload)."""
         return [s.to_wire() for s in self.spans()]
 
-    def tracks(self) -> Tuple[str, ...]:
-        """Distinct track ids, in first-appearance order."""
-        seen: Dict[str, None] = {}
-        for s in self.spans():
-            seen.setdefault(s.track, None)
-        return tuple(seen)
-
 
 class NullTracer:
     """No-op `Tracer` stand-in: the default wherever a tracer is
@@ -176,9 +205,20 @@ class NullTracer:
 
     enabled = False
     track = "null"
+    clock = staticmethod(time.perf_counter)
 
     def span(self, name: str, *, phase: str = "", **meta) -> _NullSpanCtx:
         return _NULL_SPAN
+
+    def record(self, name: str, t0: float, t1: float, *, phase: str = "",
+               **meta) -> None:
+        return None
+
+    def request(self, rid: Any) -> _NullSpanCtx:
+        return _NULL_SPAN
+
+    def current_request(self) -> Any:
+        return None
 
     def now(self) -> float:
         return 0.0
@@ -195,9 +235,6 @@ class NullTracer:
 
     def wire_spans(self) -> List[WireSpan]:
         return []
-
-    def tracks(self) -> Tuple[str, ...]:
-        return ()
 
 
 # The shared stateless no-op default (see module docstring): real Tracers

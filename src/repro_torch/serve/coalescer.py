@@ -31,15 +31,17 @@ from .request import AdvisorRequest, QueryKey
 @dataclass
 class Ticket:
     """One admitted request: the future its client awaits, plus the
-    submit instant its deadline is measured from."""
+    submit instant its deadline is measured from (on `time.perf_counter`,
+    the tracer's clock, so a traced queue wait and `waited` agree)."""
 
     request: AdvisorRequest
     future: "asyncio.Future"
-    submit: float = field(default_factory=time.monotonic)
+    submit: float = field(default_factory=time.perf_counter)
     timeout_s: Optional[float] = None   # resolved (request or server default)
+    rid: int = 0                        # the server's admission count
 
     def waited(self, now: Optional[float] = None) -> float:
-        return (time.monotonic() if now is None else now) - self.submit
+        return (time.perf_counter() if now is None else now) - self.submit
 
     def expired(self, now: Optional[float] = None) -> bool:
         """Deadline check, measured from submit — never from when the

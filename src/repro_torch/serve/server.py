@@ -31,6 +31,13 @@ Where it runs: a server-built session lives on ``device`` (default
 ``"cuda"``, raising when no card is present; ``device="cpu"`` runs the
 plain PyTorch path); a borrowed ``session=`` keeps its own device.
 
+Tracing: the session's tracer records, for each admitted request (its
+id is the admission count), ``serve.request`` from submit to answer,
+``serve.wait`` from submit until the sweep thread holds the session lock
+(or the results cache answers), and ``serve.sweep`` around the group's
+`explore`, whose spans all carry the first ticket's id
+(docs/observability.md).
+
 `set_service_times` swaps the model seed (a re-identified system) in
 one step: the service digest changes, so every cached answer computed
 under the old seed invalidates lazily on its next lookup — the
@@ -206,8 +213,19 @@ class AdvisorServer:
         ticket = Ticket(request, asyncio.get_running_loop().create_future(),
                         timeout_s=timeout)
         self.stats.requests += 1
+        ticket.rid = self.stats.requests
         await self._queue.put(ticket)
-        return await ticket.future
+        resp: Optional[AdvisorResponse] = None
+        try:
+            resp = await ticket.future
+            return resp
+        finally:
+            tracer = self.session.tracer
+            tracer.record("serve.request", ticket.submit, tracer.clock(),
+                          phase="serve", req=ticket.rid,
+                          client=request.client,
+                          cached=resp is not None and resp.cached,
+                          group=0 if resp is None else resp.group_size)
 
     # -- dispatcher ------------------------------------------------------------
     async def _serve_loop(self) -> None:
@@ -231,18 +249,24 @@ class AdvisorServer:
                         DeadlineExceeded(t.waited(), t.timeout_s or 0.0))
             else:
                 live.append(t)
+        tracer = self.session.tracer
         for key, tickets in group_tickets(live).items():
-            req = tickets[0].request
             digest = self._digest
             evals = self.results.get(key, digest)
             cached = evals is not None
-            if not cached:
+            if cached:
+                t_hit = tracer.clock()
+                for t in tickets:
+                    tracer.record("serve.wait", t.submit, t_hit,
+                                  phase="serve", req=t.rid)
+            else:
                 try:
                     # one sweep per distinct question, off the event
                     # loop; the session lock serializes it against any
                     # other thread driving the same session
                     self.stats.sweeps += 1
-                    evals = await asyncio.to_thread(self._run_sweep, req)
+                    evals = await asyncio.to_thread(self._sweep_group,
+                                                    tickets)
                 except Exception as exc:          # fail the group cleanly
                     self.stats.errors += 1
                     for t in tickets:
@@ -258,11 +282,28 @@ class AdvisorServer:
                         evaluations=evals, cached=cached,
                         group_size=len(tickets), latency_s=t.waited()))
 
-    def _run_sweep(self, req: AdvisorRequest) -> List[Evaluation]:
-        wf = req.workflow
+    def _sweep_group(self, tickets: List[Ticket]) -> List[Evaluation]:
+        """The group's one sweep, in a worker thread: every ticket's wait
+        ends once this thread holds the session lock, and the sweep's
+        spans carry the first ticket's request id."""
+        tracer = self.session.tracer
+        req = tickets[0].request
         with self.session.lock:
-            return explore(lambda c: wf, list(req.candidates),
-                           self._st, verify_top_k=req.verify_top_k,
-                           objective=req.objective,
-                           locality_aware=req.locality_aware,
-                           session=self.session)
+            t_lock = tracer.clock()
+            for t in tickets:
+                tracer.record("serve.wait", t.submit, t_lock, phase="serve",
+                              req=t.rid)
+            with tracer.request(tickets[0].rid), \
+                    tracer.span("serve.sweep", phase="serve",
+                                candidates=len(req.candidates),
+                                group=len(tickets)):
+                return self._run_sweep(req)
+
+    def _run_sweep(self, req: AdvisorRequest) -> List[Evaluation]:
+        """One `explore` for ``req``; the caller holds the session lock."""
+        wf = req.workflow
+        return explore(lambda c: wf, list(req.candidates), self._st,
+                       verify_top_k=req.verify_top_k,
+                       objective=req.objective,
+                       locality_aware=req.locality_aware,
+                       session=self.session)

@@ -225,7 +225,8 @@ def test_provisioning_advisor_matches_reference(monkeypatch, tmp_path, case):
 def test_provisioning_advisor_profile(monkeypatch, tmp_path):
     """``--profile``: the port's trace file parses and holds the best
     candidate's simulated timeline; the run prints what the reference's
-    prints."""
+    prints, but that the port's span count also holds one ``compile_dag``
+    span a DAG compile, which the reference does not record."""
     argv = ["--workload", "scatter_gather", "--nodes", "7"]
     ref = load_reference("provisioning_advisor")
     rj = small_advisor(monkeypatch, ref, J, JW)
@@ -235,10 +236,16 @@ def test_provisioning_advisor_profile(monkeypatch, tmp_path):
     port_out = captured(provisioning_advisor.main,
                         [*argv, "--profile", str(tmp_path / "t.json"),
                          "--device", "cpu"])
-    assert_same_output("provisioning_advisor", ref_out, port_out)
+    assert_same_output("provisioning_advisor", ref_out, port_out,
+                       [(r"^\[profile: \d+ spans\]$", None)])
     assert_same_rankings(rj, rt)
     doc = json.loads((tmp_path / "t.json").read_text())
     events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    n_spans = [int(re.search(r"^\[profile: (\d+) spans", out, re.M).group(1))
+               for out in (ref_out, port_out)]
+    compiles = [e for e in events
+                if e.get("ph") == "X" and e.get("name") == "compile_dag"]
+    assert compiles and n_spans[1] == n_spans[0] + len(compiles)
     best = next(ln for ln in port_out.splitlines() if "best :" in ln)
     label = "best candidate: " + best.split("best : ")[1].split(" ->")[0]
     names = {e.get("args", {}).get("name") for e in events
