@@ -97,23 +97,55 @@ class MicroOps:
         return (self.n_ops, self.n_resources)
 
 
+# An emitted block holds one column an op, in op order, and one row a field.
+# float64 holds every value the compiler emits exactly: ids, resources,
+# classes and byte counts are integers far below 2**53.
+_RES, _CLS, _NBYTES, _REQS, _EXTRA, _NLAT, _DEAD, _DEPS = range(8)
+_NCOL = _DEPS + MAXD
+
+# the steps of a chunk's chain (`_Emitter.emit_chains`), and the ops they
+# emit: a dead op, a storage service, a hop's loopback op, a remote hop's
+# send and receive
+_ABSENT, _DEAD_STEP, _STORE, _HOP = range(4)
+_OP_DEAD, _OP_STORE, _OP_LOOP, _OP_OUT, _OP_IN = range(5)
+_STEP_OP = (-1, _OP_DEAD, _OP_STORE, _OP_LOOP)    # a step's first op
+
+
 class _Emitter:
+    """Builds the op table. Protocol ops (manager round trips, compute,
+    small barriers) go one at a time through `op`; the per-chunk chains of
+    a file and the levels of a barrier tree, whose shapes are known before
+    they are emitted, go as NumPy blocks. The ops, their order and their
+    ids are those of emitting each one through `op`."""
+
     def __init__(self, config: StorageConfig, mgr: Optional[Manager] = None,
                  degraded: Optional[Dict[int, float]] = None):
         self.cfg = config
         H = config.n_hosts
         self.H = H
         self.S = config.n_storage
-        self.res: List[int] = []
-        self.cls: List[int] = []
-        self.nbytes: List[float] = []
-        self.reqs: List[float] = []
-        self.extra: List[float] = []
-        self.nlat: List[float] = []
-        self.deps: List[List[int]] = []
-        self.dead_flags: List[float] = []
+        self.n_ops = 0            # ops emitted so far: the next op's id
+        self.bulk_ops = 0         # of them, emitted in blocks
+        self._blocks: List[np.ndarray] = []   # float64[_NCOL, k] each
+        self._rows: List[tuple] = []          # `op`'s ops not yet in a block
         self.bytes_moved = 0
         self.storage_idx = {h: i for i, h in enumerate(config.storage_hosts)}
+        # per kind of chain op (`_OP_*`): its resource on each host (a
+        # hop's receive on its destination, the others on their source; -1
+        # where a host has no storage service), and its class, requests,
+        # lag and whether it carries the step's bytes
+        hosts = np.arange(H)
+        self._op_res = np.stack([np.zeros(H, dtype=np.int64),
+                                 np.full(H, -1, dtype=np.int64),
+                                 1 + 2 * H + hosts, 1 + hosts, 1 + H + hosts])
+        for h in self.storage_idx:
+            self._op_res[_OP_STORE, h] = self.r_store(h)
+        self._op_fields = np.array([[CLS_NONE, 0, 0, 0],
+                                    [CLS_STORAGE, 1, 0, 1],
+                                    [CLS_NET_LOCAL, 0, 1, 1],
+                                    [CLS_NET_REMOTE, 0, 0, 1],
+                                    [CLS_NET_REMOTE, 0, 1, 1]],
+                                   dtype=np.float64)
         # the manager supplies read-side replica choice (failover +
         # degradation steering); degraded maps host -> service multiplier
         self.mgr = mgr if mgr is not None else Manager(config)
@@ -132,41 +164,56 @@ class _Emitter:
 
     # op emission --------------------------------------------------------------
     def op(self, res: int, cls: int, deps: Sequence[int], *, nbytes: float = 0.0,
-           reqs: float = 0.0, extra: float = 0.0, nlat: float = 0.0,
-           dead: bool = False) -> int:
+           reqs: float = 0.0, extra: float = 0.0, nlat: float = 0.0) -> int:
         deps = [d for d in deps if d >= 0]
         if len(deps) > MAXD:
             deps = [self.barrier(deps)]
-        i = len(self.res)
-        self.res.append(res)
-        self.cls.append(cls)
-        self.nbytes.append(float(nbytes))
-        self.reqs.append(float(reqs))
-        self.extra.append(float(extra))
-        self.nlat.append(float(nlat))
-        self.deps.append(list(deps) + [-1] * (MAXD - len(deps)))
-        self.dead_flags.append(1.0 if dead else 0.0)
-        return i
+        self._rows.append((res, cls, nbytes, reqs, extra, nlat, 0.0,
+                           *deps, *(-1,) * (MAXD - len(deps))))
+        self.n_ops += 1
+        return self.n_ops - 1
 
-    def dead_op(self, deps: Sequence[int]) -> int:
-        """An unservable operation (read with no surviving replica, write
-        with no live storage node): a dummy-resource op whose simulated
-        duration is `faults.DEAD_TIME`, so the run's makespan crosses
-        `faults.FAILED_THRESHOLD` and `RunReport.failed` is set."""
-        return self.op(0, CLS_NONE, deps, dead=True)
+    def _flush(self) -> None:
+        if self._rows:
+            self._blocks.append(np.array(self._rows, dtype=np.float64).T)
+            self._rows = []
+
+    def _push(self, block: np.ndarray) -> None:
+        """Append a block of ops after those emitted so far."""
+        self._flush()
+        self._blocks.append(block)
+        self.n_ops += block.shape[1]
+        self.bulk_ops += block.shape[1]
+
+    def table(self) -> np.ndarray:
+        """Every op emitted, float64[_NCOL, n_ops] in op order."""
+        self._flush()
+        return (np.concatenate(self._blocks, axis=1) if self._blocks
+                else np.empty((_NCOL, 0)))
 
     def barrier(self, deps: Sequence[int]) -> int:
-        """MAXD-ary zero-cost reduction tree on the dummy resource."""
-        deps = list(deps)
-        if not deps:
-            deps = [-1]
-        while len(deps) > MAXD:
-            nxt = []
-            for k in range(0, len(deps), MAXD):
-                grp = deps[k:k + MAXD]
-                nxt.append(self.op(0, CLS_NONE, grp) if len(grp) > 1 else grp[0])
-            deps = nxt
+        """MAXD-ary zero-cost reduction tree on the dummy resource: each
+        level groups its deps by MAXD in order, one op a group (a group of
+        one passes its dep through); the root is emitted last."""
+        if len(deps) > MAXD:
+            d = np.asarray(deps, dtype=np.int64)
+            while len(d) > MAXD:
+                d = self._barrier_level(d)
+            deps = d.tolist()
         return self.op(0, CLS_NONE, deps)
+
+    def _barrier_level(self, d: np.ndarray) -> np.ndarray:
+        """One level of `barrier`'s tree as a block; the next level's deps."""
+        k = len(d) - (len(d) % MAXD == 1)        # a last group of one passes
+        grp = np.concatenate([d[:k], np.full(-k % MAXD, -1)]).reshape(-1, MAXD)
+        if (grp < 0).any():                     # `op` drops them: pack left
+            grp = np.take_along_axis(
+                grp, np.argsort(grp < 0, axis=1, kind="stable"), axis=1)
+        block = np.zeros((_NCOL, len(grp)))
+        block[_DEPS:] = grp.T
+        ids = self.n_ops + np.arange(len(grp))
+        self._push(block)
+        return np.concatenate([ids, d[k:]])
 
     def hop(self, src: int, dst: int, nbytes: float, deps: Sequence[int]) -> int:
         """One network message src->dst. Returns the op id whose completion
@@ -177,6 +224,50 @@ class _Emitter:
         a = self.op(self.r_out(src), CLS_NET_REMOTE, deps, nbytes=nbytes)
         return self.op(self.r_in(dst), CLS_NET_REMOTE, [a], nbytes=nbytes, nlat=1.0)
 
+    def emit_chains(self, dep: int, kind: np.ndarray, a: np.ndarray, b: np.ndarray,
+               nbytes: np.ndarray) -> np.ndarray:
+        """Emit one chain of ops a chunk, chunk after chunk, as one block.
+
+        Row j of the int64[n_chunks, steps] arrays lists chunk j's steps in
+        order: `_HOP` is `hop` a -> b of ``nbytes``, `_STORE` a storage
+        service op on a, `_ABSENT` nothing, and `_DEAD_STEP` an unservable
+        operation (a read with no surviving replica, a write with no live
+        storage node): a dummy-resource op whose simulated duration is
+        `faults.DEAD_TIME`, so the run's makespan crosses
+        `faults.FAILED_THRESHOLD` and `RunReport.failed` is set. A chunk's
+        first op waits for ``dep``, each later one for the op before it.
+        Returns each chunk's last op."""
+        n, steps = kind.shape
+        kind, a, b, nbytes = kind.ravel(), a.ravel(), b.ravel(), nbytes.ravel()
+        hop = kind == _HOP
+        self.bytes_moved += int(nbytes[hop].sum())
+        remote = hop & (a != b)
+        # two op slots a step: its first op, and a remote hop's receive
+        slots = np.empty((4, 2 * len(kind)), dtype=np.int64)
+        slots[0, 0::2] = np.where(remote, _OP_OUT, np.take(_STEP_OP, kind))
+        slots[0, 1::2] = _OP_IN
+        slots[1, 0::2], slots[1, 1::2] = a, b
+        slots[2] = np.repeat(nbytes, 2)
+        slots[3, 0::2], slots[3, 1::2] = kind != _ABSENT, remote
+        per_chunk = slots[3].reshape(n, 2 * steps).sum(axis=1)
+        op, host, nb = slots[:3, slots[3] == 1]
+        end = np.cumsum(per_chunk)
+        cls, reqs, nlat, has_bytes = self._op_fields[op].T
+        block = np.empty((_NCOL, len(op)))
+        block[_RES] = self._op_res[op, host]
+        block[_CLS] = cls
+        block[_NBYTES] = nb * has_bytes
+        block[_REQS] = reqs
+        block[_EXTRA] = 0.0
+        block[_NLAT] = nlat
+        block[_DEAD] = op == _OP_DEAD
+        block[_DEPS] = self.n_ops + np.arange(-1, len(op) - 1)
+        block[_DEPS, end - per_chunk] = dep
+        block[_DEPS + 1:] = -1
+        last = self.n_ops + end - 1
+        self._push(block)
+        return last
+
     # protocol-level emission (§2.4 write/read walk-throughs) -------------------
     def emit_write(self, client_host: int, loc: FileLoc, deps: Sequence[int]) -> int:
         m = self.cfg.manager_host
@@ -185,20 +276,22 @@ class _Emitter:
         b = self.op(self.r_manager, CLS_MANAGER, [a], reqs=1.0)
         reply = self.hop(m, client_host, CTRL_BYTES, [b])
         # 2. chunk stores, round-robin over the allocated stripe; each chunk:
-        #    client -> primary storage service -> replica chain
-        chunk_done: List[int] = []
-        for j in range(loc.n_chunks):
-            cb = loc.chunk_bytes(j)
-            chain = loc.chunks[j]
-            if not chain:                       # no live storage node remains
-                chunk_done.append(self.dead_op([reply]))
-                continue
-            d = self.hop(client_host, chain[0], cb, [reply])
-            d = self.op(self.r_store(chain[0]), CLS_STORAGE, [d], nbytes=cb, reqs=1.0)
-            for prev, nxt in zip(chain, chain[1:]):
-                d = self.hop(prev, nxt, cb, [d])
-                d = self.op(self.r_store(nxt), CLS_STORAGE, [d], nbytes=cb, reqs=1.0)
-            chunk_done.append(d)
+        #    client -> primary storage service -> replica chain. Placement
+        #    gives every chunk of a file a chain of one length, or none at
+        #    all when no live storage node remains: a dead op a chunk
+        n, r = loc.n_chunks, len(loc.chunks[0]) if loc.chunks else 0
+        chain = np.array(loc.chunks, dtype=np.int64).reshape(n, r)
+        if r == 0:
+            kind = np.full((n, 1), _DEAD_STEP)
+            src = dst = np.zeros((n, 1), dtype=np.int64)
+        else:
+            kind = np.tile([_HOP, _STORE], (n, r))
+            dst = np.repeat(chain, 2, axis=1)
+            src = dst.copy()
+            src[:, 0] = client_host
+            src[:, 2::2] = chain[:, :-1]
+        cb = np.repeat(_chunk_bytes(loc)[:, None], kind.shape[1], axis=1)
+        chunk_done = self.emit_chains(reply, kind, src, dst, cb)
         # acks are not charged (paper §2: ack time does not tangibly impact accuracy)
         allc = self.barrier(chunk_done)
         # 3. chunk-map commit -> manager -> ack      (manager request #2)
@@ -211,29 +304,44 @@ class _Emitter:
         a = self.hop(client_host, m, CTRL_BYTES, deps)
         b = self.op(self.r_manager, CLS_MANAGER, [a], reqs=1.0)
         reply = self.hop(m, client_host, CTRL_BYTES, [b])
-        chunk_done: List[int] = []
-        for j in range(loc.n_chunks):
-            cb = loc.chunk_bytes(j)
-            # load-balance over replicas (chunk j -> j mod r); under faults
-            # the manager fails over to a surviving replica, steering to
-            # the least-degraded one — None means the chunk is lost
-            src = self.mgr.pick_replica(loc.chunks[j], j, self.degraded)
-            if src is None:
-                chunk_done.append(self.dead_op([reply]))
-                continue
-            d = self.hop(client_host, src, CTRL_BYTES, [reply])          # chunk request
-            d = self.op(self.r_store(src), CLS_STORAGE, [d], nbytes=cb, reqs=1.0)  # storage service
-            d = self.hop(src, client_host, cb, [d])                      # data transfer
-            chunk_done.append(d)
+        # load-balance over replicas (chunk j -> j mod r); under faults
+        # the manager fails over to a surviving replica, steering to
+        # the least-degraded one — None (-1) means the chunk is lost
+        if self.mgr.dead or self.degraded:
+            picks = (self.mgr.pick_replica(c, j, self.degraded)
+                     for j, c in enumerate(loc.chunks))
+            src = np.fromiter((-1 if h is None else h for h in picks),
+                              np.int64, loc.n_chunks)
+        else:
+            src = loc.default_replicas
+        # chunk request, storage service, data transfer back
+        n, c, cb = loc.n_chunks, np.full(loc.n_chunks, client_host), _chunk_bytes(loc)
+        kind = np.where((src < 0)[:, None], [_DEAD_STEP, _ABSENT, _ABSENT],
+                        [_HOP, _STORE, _HOP])
+        chunk_done = self.emit_chains(
+            reply, kind, np.stack([c, src, src], axis=1),
+            np.stack([src, src, c], axis=1),
+            np.stack([np.full(n, CTRL_BYTES), cb, cb], axis=1))
         return self.barrier(chunk_done)
 
 
+def _chunk_bytes(loc: FileLoc) -> np.ndarray:
+    """int64[n_chunks]: `FileLoc.chunk_bytes` of every chunk."""
+    cb = np.full(loc.n_chunks, loc.chunk_size, dtype=np.int64)
+    if loc.n_chunks:
+        cb[-1] = loc.chunk_bytes(loc.n_chunks - 1)
+    return cb
+
+
 def compile_workflow(wf: Workflow, cfg: StorageConfig, *,
-                     locality_aware: bool = True) -> MicroOps:
+                     locality_aware: bool = True,
+                     counts: Optional[Dict[str, int]] = None) -> MicroOps:
     """Compile a workflow into the micro-op DAG.
 
     Tasks must be listed in a valid topological order (producers before
     consumers); `Workflow.validate` checks producer existence.
+    ``counts``, if given, receives ``bulk_ops``: how many of the DAG's ops
+    were emitted in blocks (chunk chains and barrier-tree levels).
     """
     global _N_COMPILES
     with _N_COMPILES_LOCK:
@@ -338,6 +446,7 @@ def compile_workflow(wf: Workflow, cfg: StorageConfig, *,
     # --- bake the scenario into per-resource multipliers + death mask ---------
     # None for healthy compiles: the arrays (and the simulator branches
     # that would consume them) only exist when a scenario asks for them
+    table = b.table()
     res_mult: Optional[np.ndarray] = None
     dead_arr: Optional[np.ndarray] = None
     if scenario is not None:
@@ -348,17 +457,17 @@ def compile_workflow(wf: Workflow, cfg: StorageConfig, *,
             for s in scenario.stragglers:
                 rm[b.r_cpu(cfg.client_hosts[s.rank])] *= s.factor
             res_mult = rm
-        if any(b.dead_flags):
-            dead_arr = np.asarray(b.dead_flags, dtype=np.float64)
+        if table[_DEAD].any():
+            dead_arr = table[_DEAD].copy()
 
     ops = MicroOps(
-        res=np.asarray(b.res, dtype=np.int32),
-        cls=np.asarray(b.cls, dtype=np.int8),
-        nbytes=np.asarray(b.nbytes, dtype=np.float64),
-        reqs=np.asarray(b.reqs, dtype=np.float64),
-        extra=np.asarray(b.extra, dtype=np.float64),
-        nlat=np.asarray(b.nlat, dtype=np.float64),
-        deps=np.asarray(b.deps, dtype=np.int32).reshape(-1, MAXD),
+        res=table[_RES].astype(np.int32),
+        cls=table[_CLS].astype(np.int8),
+        nbytes=table[_NBYTES].copy(),
+        reqs=table[_REQS].copy(),
+        extra=table[_EXTRA].copy(),
+        nlat=table[_NLAT].copy(),
+        deps=np.ascontiguousarray(table[_DEPS:].T, dtype=np.int32),
         n_resources=b.n_resources,
         task_end_op=task_end,
         stage_of_task={t.tid: t.stage for t in wf.tasks},
@@ -370,4 +479,6 @@ def compile_workflow(wf: Workflow, cfg: StorageConfig, *,
     )
     # sanity: DAG is topologically ordered by construction
     assert (ops.deps < np.arange(ops.n_ops)[:, None]).all(), "non-topological DAG"
+    if counts is not None:
+        counts["bulk_ops"] = b.bulk_ops
     return ops

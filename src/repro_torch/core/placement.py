@@ -18,7 +18,10 @@ path.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import cached_property
 from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from .types import FileAttr, Placement, StorageConfig
 
@@ -40,6 +43,16 @@ class FileLoc:
     @property
     def n_chunks(self) -> int:
         return len(self.chunks)
+
+    @cached_property
+    def default_replicas(self) -> np.ndarray:
+        """int64[n_chunks]: the replica chunk j is read from while no host
+        is dead or degraded, replica ``j mod r`` (`Manager.pick_replica`),
+        or -1 where the chain is empty. Chains do not change once placed,
+        so a file read many times computes this once."""
+        return np.fromiter((c[j % len(c)] if c else -1
+                            for j, c in enumerate(self.chunks)),
+                           np.int64, self.n_chunks)
 
     def chunk_bytes(self, j: int) -> int:
         last = self.size - (self.n_chunks - 1) * self.chunk_size

@@ -240,8 +240,8 @@ class CompileCache:
         pool. Returns one `MicroOps` per candidate, aligned with the
         input order (duplicates are shared references, not copies).
         ``tracer`` records a ``compile_dag`` span (meta ``ops``,
-        ``tasks``) per `compile_workflow`, under the caller's request id
-        on the pool's threads too.
+        ``bulk_ops``, ``tasks``) per `compile_workflow`, under the caller's
+        request id on the pool's threads too.
         """
         tracer = NULL_TRACER if tracer is None else tracer
         with self._mu:
@@ -255,10 +255,13 @@ class CompileCache:
 
         def build(i: int) -> MicroOps:
             t0 = tracer.clock()
+            counts: Dict[str, int] = {}
             ops = compile_workflow(wfs[i], cfgs[i],
-                                   locality_aware=locality_aware)
+                                   locality_aware=locality_aware,
+                                   counts=counts)
             tracer.record("compile_dag", t0, tracer.clock(), phase="compile",
-                          ops=ops.n_ops, tasks=len(wfs[i].tasks), **scope)
+                          ops=ops.n_ops, bulk_ops=counts["bulk_ops"],
+                          tasks=len(wfs[i].tasks), **scope)
             return ops
 
         def build_many(idxs: Sequence[int]) -> List[MicroOps]:

@@ -71,6 +71,22 @@ def config_pair(scenario, replication):
     return jcfg, tcfg
 
 
+def assert_same_micro_ops(jo, to):
+    """Every array (values and dtype) and every piece of metadata."""
+    assert jo.n_resources == to.n_resources
+    for f in ARRAYS:
+        a, b = getattr(jo, f), getattr(to, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert a.dtype == b.dtype, f
+            np.testing.assert_array_equal(a, b, err_msg=f)
+    assert jo.task_end_op == to.task_end_op
+    assert jo.stage_of_task == to.stage_of_task
+    assert jo.file_write_op == to.file_write_op
+    assert (jo.bytes_moved, jo.storage_used) == (to.bytes_moved,
+                                                 to.storage_used)
+
+
 @pytest.mark.parametrize("scenario,replication", SCENARIOS)
 @pytest.mark.parametrize("name", WORKLOADS)
 def test_compile_and_oracle_parity(name, scenario, replication):
@@ -85,17 +101,7 @@ def test_compile_and_oracle_parity(name, scenario, replication):
 
     jo = J.compile_workflow(jwf, jcfg)
     to = T.compile_workflow(twf, tcfg)
-    assert jo.n_resources == to.n_resources
-    for f in ARRAYS:
-        a, b = getattr(jo, f), getattr(to, f)
-        assert (a is None) == (b is None), f
-        if a is not None:
-            assert a.dtype == b.dtype, f
-            np.testing.assert_array_equal(a, b, err_msg=f)
-    assert jo.task_end_op == to.task_end_op
-    assert jo.stage_of_task == to.stage_of_task
-    assert (jo.bytes_moved, jo.storage_used) == (to.bytes_moved,
-                                                 to.storage_used)
+    assert_same_micro_ops(jo, to)
 
     rj = j_ref.simulate(jo, J.PAPER_RAMDISK)
     rt = t_ref.simulate(to, T.PAPER_RAMDISK)
@@ -107,6 +113,96 @@ def test_compile_and_oracle_parity(name, scenario, replication):
     pt = torch_sim.scan_order(to, T.PAPER_RAMDISK)
     assert pj.dtype == pt.dtype
     np.testing.assert_array_equal(pj, pt)
+
+
+def odd_sizes(P):
+    """Files of no bytes and files whose last chunk is partial, and a task
+    whose start barrier holds more than MAXD deps, most of them on
+    preloaded files (no op: ``-1``), on fixed clients."""
+    ck = 512 * P.KB
+    local = P.FileAttr(placement=P.Placement.LOCAL)
+    pre = {"in": (5 * ck + 123, None), "empty": (0, None)}
+    pre.update({f"p{k}": ((k + 1) * ck // 3, None) for k in range(9)})
+    tasks = [
+        P.Task(tid=0, inputs=("in", "empty"), client=1, stage="a", runtime=0.5,
+               outputs=(("mid", 3 * ck + 1), ("zero", 0)),
+               file_attrs={"mid": local}),
+        P.Task(tid=1, inputs=("mid", "zero"), client=1, stage="b",
+               outputs=(("part", ck - 1),)),
+        P.Task(tid=2, inputs=("part", "p0", "p1", "p2", "p3", "zero", "p4",
+                              "p5", "p6", "p7", "p8", "mid"),
+               client=1, stage="c", outputs=(("out", 7 * ck + 5),)),
+    ]
+    return P.Workflow(tasks=tasks, name="odd_sizes", preloaded=pre)
+
+
+def whatif_pattern(pattern, args, locality_aware, chunk_size):
+    """A deployment of the what-if benchmark's patterns: 19 clients
+    collocated with storage on 20 hosts, the medium-scale files."""
+    def build(P, W):
+        return (getattr(W, pattern)(**args),
+                P.collocated_config(20, chunk_size=chunk_size),
+                locality_aware)
+    return build
+
+
+def blast_faulted(spec, replication):
+    def build(P, W):
+        return (W.blast(4, n_queries=24, db_mb=64),
+                P.partitioned_config(4, 3, chunk_size=256 * P.KB,
+                                     replication=replication,
+                                     faults=P.parse_faults(spec)), True)
+    return build
+
+
+# the block emitter's inputs: whole-width reads, local and remote chunk
+# chains, replica chains of 1, 2 and 4, failover and steering, dead ops
+CORPUS = {
+    "blast_paper_db_256k": lambda P, W: (
+        W.blast(4, n_queries=24, db_mb=1710),
+        P.partitioned_config(4, 3, chunk_size=256 * P.KB), True),
+    **{f"{name}_{ck // 1024}k": whatif_pattern(pattern, args, la, ck)
+       for name, pattern, args, la in [
+           ("pipeline_dss", "pipeline", {"wass": False}, False),
+           ("pipeline_wass", "pipeline", {"wass": True}, True),
+           ("reduce_dss", "reduce_", {"wass": False}, False),
+           ("reduce_wass", "reduce_", {"wass": True}, True),
+           ("broadcast_r1", "broadcast", {"replication": 1}, False),
+           ("broadcast_r2", "broadcast", {"replication": 2}, True),
+           ("broadcast_r4", "broadcast", {"replication": 4}, True)]
+       for ck in (256 * 1024, 4 * 1024 * 1024)},
+    # a host killed after two tasks and another degraded: reads fail over
+    # and steer to the healthy replica
+    "blast_failover_r2": blast_faulted("disk=0:8,kill=1@2", 2),
+    "pipeline_failover_r2": lambda P, W: (
+        W.pipeline(4), P.partitioned_config(
+            4, 3, chunk_size=512 * P.KB, replication=2,
+            faults=P.parse_faults("disk=2:4,kill=1@5")), True),
+    # no surviving replica: lost reads; then no live storage: lost writes
+    "blast_lost_reads_r1": blast_faulted("kill=1@2", 1),
+    "blast_all_storage_dead": blast_faulted("kill=0@2,kill=1@2,kill=2@3", 2),
+    "odd_sizes": lambda P, W: (odd_sizes(P), P.collocated_config(
+        4, chunk_size=512 * P.KB, replication=2), True),
+    "odd_sizes_faulted": lambda P, W: (odd_sizes(P), P.collocated_config(
+        4, chunk_size=512 * P.KB, replication=2,
+        faults=P.parse_faults("kill=0@1,disk=1:3")), True),
+}
+
+
+@pytest.mark.parametrize("name", list(CORPUS))
+def test_compile_parity_corpus(name):
+    """The port's block emitter builds the reference's DAG, to the bit."""
+    jwf, jcfg, la = CORPUS[name](J, JW)
+    twf, tcfg, _ = CORPUS[name](T, TW)
+    assert jwf.fingerprint() == twf.fingerprint()
+    assert jcfg.fingerprint() == tcfg.fingerprint()
+    counts = {}
+    to = T.compile_workflow(twf, tcfg, locality_aware=la, counts=counts)
+    assert_same_micro_ops(J.compile_workflow(jwf, jcfg, locality_aware=la), to)
+    assert 0 < counts["bulk_ops"] < to.n_ops
+    for f in ARRAYS:
+        a = getattr(to, f)
+        assert a is None or a.flags.c_contiguous, f
 
 
 @pytest.mark.parametrize("name", WORKLOADS)

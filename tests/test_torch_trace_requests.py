@@ -1,8 +1,9 @@
 """Request-scoped spans of the port (`repro_torch.obs.trace`) where the
 work happens: the advisor service's request, queue wait and sweep, one
-``compile_dag`` span per cold DAG compile with its op count, and the
-what-if path's four parts. CPU, but for one ``gpu`` case that counts the
-what-if path's kernel launches on the card.
+``compile_dag`` span per cold DAG compile with its op count and how many
+of them were emitted as blocks, and the what-if path's four parts. CPU,
+but for one ``gpu`` case that counts the what-if path's kernel launches
+on the card.
 
 The file imports `repro_torch` only, so the ``gpu`` case runs on a
 machine with a card: ``python -m pytest -q -m gpu
@@ -223,12 +224,25 @@ def test_compile_dag_spans_count_the_compiled_ops(workers, enabled):
     assert sum(meta(s)["ops"] for s in dags) == \
         sum(o.n_ops for o in (ops if not enabled else distinct))
     assert all(meta(s)["req"] == 7 and s.phase == "compile" for s in dags)
+    assert all(0 <= meta(s)["bulk_ops"] <= meta(s)["ops"] for s in dags)
     assert {meta(s)["tasks"] for s in dags} == \
         {len(w.tasks) for w in wf.values()}
     if enabled:                 # warm: nothing compiles, nothing recorded
         tr.clear()
         cache.compile_grid(lambda c: wf[c.n_app], cands, tracer=tr)
         assert tr.spans() == ()
+
+
+def test_compile_dag_spans_count_the_ops_emitted_in_blocks():
+    """A BLAST DAG is almost all database chunks: nearly every op comes
+    from the block emitter, and the span says how many."""
+    tr = Tracer()
+    cands = T.grid(n_nodes=[7], partitions=[(3, 3)], chunk_sizes=[256 * 1024])
+    ops = T.CompileCache(enabled=False).compile_grid(
+        lambda c: W.blast(3, n_queries=12, db_mb=128), cands, tracer=tr)
+    (dag,) = [meta(s) for s in tr.spans() if s.name == "compile_dag"]
+    assert dag["ops"] == ops[0].n_ops
+    assert dag["bulk_ops"] / dag["ops"] > 0.95
 
 
 # -- the what-if path ------------------------------------------------------------
