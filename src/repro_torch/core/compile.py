@@ -126,6 +126,8 @@ class _Emitter:
         self.S = config.n_storage
         self.n_ops = 0            # ops emitted so far: the next op's id
         self.bulk_ops = 0         # of them, emitted in blocks
+        self.picks = 0            # chunk reads resolved by `pick_replica`
+        self.failovers = 0        # of them, served off replica ``j mod r``
         self._blocks: List[np.ndarray] = []   # float64[_NCOL, k] each
         self._rows: List[tuple] = []          # `op`'s ops not yet in a block
         self.bytes_moved = 0
@@ -312,6 +314,9 @@ class _Emitter:
                      for j, c in enumerate(loc.chunks))
             src = np.fromiter((-1 if h is None else h for h in picks),
                               np.int64, loc.n_chunks)
+            self.picks += loc.n_chunks
+            self.failovers += int(np.count_nonzero(
+                (src >= 0) & (src != loc.default_replicas)))
         else:
             src = loc.default_replicas
         # chunk request, storage service, data transfer back
@@ -341,7 +346,12 @@ def compile_workflow(wf: Workflow, cfg: StorageConfig, *,
     Tasks must be listed in a valid topological order (producers before
     consumers); `Workflow.validate` checks producer existence.
     ``counts``, if given, receives ``bulk_ops``: how many of the DAG's ops
-    were emitted in blocks (chunk chains and barrier-tree levels).
+    were emitted in blocks (chunk chains and barrier-tree levels); and
+    what the fault path did (docs/faults.md), 0 on a healthy compile:
+    ``faulted`` (1 when the config carries a scenario), ``picks`` (chunk
+    reads resolved by `Manager.pick_replica`), ``failovers`` (of them,
+    served by another replica than ``j mod r``; a lost chunk is a dead
+    op, not a failover), ``dead_ops`` and ``kills`` (deaths that fired).
     """
     global _N_COMPILES
     with _N_COMPILES_LOCK:
@@ -374,9 +384,13 @@ def compile_workflow(wf: Workflow, cfg: StorageConfig, *,
             kill_at.append((act, host))
         kill_at.sort()
 
+    kills = 0
+
     def activate_kills(upto: int) -> None:
+        nonlocal kills
         while kill_at and kill_at[0][0] <= upto:
             mgr.kill(kill_at.pop(0)[1])
+            kills += 1
 
     b = _Emitter(cfg, mgr, degraded)
 
@@ -480,5 +494,8 @@ def compile_workflow(wf: Workflow, cfg: StorageConfig, *,
     # sanity: DAG is topologically ordered by construction
     assert (ops.deps < np.arange(ops.n_ops)[:, None]).all(), "non-topological DAG"
     if counts is not None:
-        counts["bulk_ops"] = b.bulk_ops
+        counts.update(bulk_ops=b.bulk_ops, faulted=int(scenario is not None),
+                      picks=b.picks, failovers=b.failovers,
+                      dead_ops=0 if dead_arr is None else int(dead_arr.sum()),
+                      kills=kills)
     return ops

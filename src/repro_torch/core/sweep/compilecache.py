@@ -239,9 +239,11 @@ class CompileCache:
         one candidate. ``workers`` > 1 compiles cold classes on a thread
         pool. Returns one `MicroOps` per candidate, aligned with the
         input order (duplicates are shared references, not copies).
-        ``tracer`` records a ``compile_dag`` span (meta ``ops``,
-        ``bulk_ops``, ``tasks``) per `compile_workflow`, under the caller's
-        request id on the pool's threads too.
+        ``tracer`` records a ``compile_dag`` span (meta ``ops``, ``tasks``
+        and `compile_workflow`'s ``counts``: ``bulk_ops`` and the fault
+        path's ``faulted``, ``picks``, ``failovers``, ``dead_ops``,
+        ``kills``) per `compile_workflow`, under the caller's request id
+        on the pool's threads too.
         """
         tracer = NULL_TRACER if tracer is None else tracer
         with self._mu:
@@ -260,8 +262,8 @@ class CompileCache:
                                    locality_aware=locality_aware,
                                    counts=counts)
             tracer.record("compile_dag", t0, tracer.clock(), phase="compile",
-                          ops=ops.n_ops, bulk_ops=counts["bulk_ops"],
-                          tasks=len(wfs[i].tasks), **scope)
+                          ops=ops.n_ops, tasks=len(wfs[i].tasks), **counts,
+                          **scope)
             return ops
 
         def build_many(idxs: Sequence[int]) -> List[MicroOps]:

@@ -440,16 +440,17 @@ class SweepEngine:
                 # >= the shard count, so it always divides the mesh —
                 # odd batch sizes reuse existing buckets, never mint keys
                 c_pad = _shard.shard_pad(len(idxs), shards)
+                # one faulted row makes the whole bucket faulted:
+                # healthy companions ride along on neutral arrays
+                # (exact) rather than splitting the bucket in two
+                faulted_b = any(torch_sim.faulted(ops_list[i]) for i in idxs)
                 with self.tracer.span(f"prep[{n_pad}x{r_pad}]",
-                                      phase="host-prep", rows=len(idxs)):
+                                      phase="host-prep", rows=len(idxs),
+                                      faulted=int(faulted_b)):
                     keyed = [self._prepped_row(ops_list[i], st_list[i],
                                                n_pad, r_pad, exact, dtype)
                              for i in idxs]
                     vecs = [torch_sim.st_to_vec(st_list[i]) for i in idxs]
-                    # one faulted row makes the whole bucket faulted:
-                    # healthy companions ride along on neutral arrays
-                    # (exact) rather than splitting the bucket in two
-                    faulted_b = any(f is not None for _, _, f in keyed)
                     # pad the batch axis by replicating the first row;
                     # the duplicates are sliced off below
                     keyed += [keyed[0]] * (c_pad - len(idxs))
