@@ -27,12 +27,14 @@ device count are padded into the existing power-of-two buckets
 (``shard.shard_pad``), never given new keys.
 
 Below the callables sit two caches that keep warm sweeps device-bound
-(the Python prep — `scan_order` + padding + host->device transfer —
-otherwise dwarfs the simulation itself):
+(a cold row's prep — the DAG's copy to the device, its estimated-start
+order and its permuted, padded arrays, built on a card by
+`torch_sim.DeviceOrder` and on a CPU engine by `scan_order` and NumPy —
+otherwise outweighs the simulation itself):
 
 * a **row cache** of prepped `OpArrays`, keyed by (DAG identity, service
   times, ops bucket, exact, dtype) — subset re-sweeps (halving rounds,
-  what-if loops) skip `scan_order` and padding for every row seen before;
+  what-if loops) skip the order and padding for every row seen before;
 * a **batch cache** of stacked bucket batches, keyed by the row keys —
   an identical re-sweep skips stacking entirely.
 
@@ -107,6 +109,12 @@ class CacheStats:
     padded_rows: int = 0          # rows actually simulated incl. padding
     row_hits: int = 0             # prepped-OpArrays cache traffic
     row_misses: int = 0
+    orders_on_card: int = 0       # scan-mode rows (row misses) whose order
+                                  # and arrays the card built
+                                  # (`torch_sim.DeviceOrder`)
+    orders_on_host: int = 0       # ... that `torch_sim.scan_order` ordered
+                                  # on the host (a CPU engine, a forward
+                                  # dep, a duration not finite)
     stack_hits: int = 0           # stacked-bucket-batch cache traffic
     stack_misses: int = 0
     sharded_batch_calls: int = 0  # simulate_batch calls that sharded >= 1 bucket
@@ -349,14 +357,16 @@ class SweepEngine:
             self._rows.move_to_end(key)
             return key, hit[1], hit[2]
         self.stats.row_misses += 1
-        perm = None if exact else torch_sim.scan_order(ops, st)
-        arr = torch_sim.OpArrays.from_micro_ops(ops, pad_to=n_pad, perm=perm,
-                                                device=self.device,
-                                                dtype=dtype)
-        farr = (torch_sim.FaultArrays.from_micro_ops(
-                    ops, n_resources=r_pad, pad_to=n_pad, perm=perm,
-                    device=self.device, dtype=dtype)
-                if torch_sim.faulted(ops) else None)
+        order = None
+        if not exact:
+            order = torch_sim.estimated_order(ops, st, self.device)
+            if isinstance(order, torch_sim.DeviceOrder):
+                self.stats.orders_on_card += 1
+            else:
+                self.stats.orders_on_host += 1
+        arr, farr = torch_sim.prepped_arrays(ops, order, pad_to=n_pad,
+                                             n_resources=r_pad,
+                                             device=self.device, dtype=dtype)
         self._rows[key] = (ops, arr, farr)
         if len(self._rows) > self.max_row_entries:
             self._rows.popitem(last=False)
@@ -444,25 +454,29 @@ class SweepEngine:
                 # healthy companions ride along on neutral arrays
                 # (exact) rather than splitting the bucket in two
                 faulted_b = any(torch_sim.faulted(ops_list[i]) for i in idxs)
-                with self.tracer.span(f"prep[{n_pad}x{r_pad}]",
-                                      phase="host-prep", rows=len(idxs),
-                                      faulted=int(faulted_b)):
-                    keyed = [self._prepped_row(ops_list[i], st_list[i],
-                                               n_pad, r_pad, exact, dtype)
-                             for i in idxs]
-                    vecs = [torch_sim.st_to_vec(st_list[i]) for i in idxs]
-                    # pad the batch axis by replicating the first row;
-                    # the duplicates are sliced off below
-                    keyed += [keyed[0]] * (c_pad - len(idxs))
-                    vecs += [vecs[0]] * (c_pad - len(idxs))
-                    batch, fbatch = self._stacked(
-                        tuple(k for k, _, _ in keyed),
-                        [ops_list[i] for i in idxs],
-                        [a for _, a, _ in keyed],
-                        [f for _, _, f in keyed] if faulted_b else None,
-                        n_pad, r_pad, dtype)
-                    st_vecs = torch_sim.st_tensor(np.stack(vecs), self.device,
-                                                  dtype)
+                # the span's meta says how many of its rows the card
+                # ordered, known only at its end
+                t0, on_card0 = self.tracer.clock(), self.stats.orders_on_card
+                keyed = [self._prepped_row(ops_list[i], st_list[i],
+                                           n_pad, r_pad, exact, dtype)
+                         for i in idxs]
+                vecs = [torch_sim.st_to_vec(st_list[i]) for i in idxs]
+                # pad the batch axis by replicating the first row;
+                # the duplicates are sliced off below
+                keyed += [keyed[0]] * (c_pad - len(idxs))
+                vecs += [vecs[0]] * (c_pad - len(idxs))
+                batch, fbatch = self._stacked(
+                    tuple(k for k, _, _ in keyed),
+                    [ops_list[i] for i in idxs],
+                    [a for _, a, _ in keyed],
+                    [f for _, _, f in keyed] if faulted_b else None,
+                    n_pad, r_pad, dtype)
+                st_vecs = torch_sim.st_tensor(np.stack(vecs), self.device,
+                                              dtype)
+                self.tracer.record(
+                    f"prep[{n_pad}x{r_pad}]", t0, self.tracer.clock(),
+                    phase="host-prep", rows=len(idxs), faulted=int(faulted_b),
+                    on_card=self.stats.orders_on_card - on_card0)
                 with self.tracer.span(f"sim[{n_pad}x{r_pad}x{c_pad}]",
                                       phase=sim_phase, rows=len(idxs),
                                       shards=shards, faulted=faulted_b):

@@ -73,7 +73,8 @@ from .engine import SweepEngine
 # engine / compile-cache counters that roll up from workers by summation
 _ENGINE_ROLLUP = ("hits", "misses", "evictions", "batch_calls",
                   "exact_batch_calls", "sims", "exact_sims", "padded_rows",
-                  "row_hits", "row_misses", "stack_hits", "stack_misses",
+                  "row_hits", "row_misses", "orders_on_card",
+                  "orders_on_host", "stack_hits", "stack_misses",
                   "kernel_buckets", "kernel_fallbacks", "kernel_launches")
 _CACHE_ROLLUP = ("hits", "misses", "evictions", "disk_hits", "disk_stores")
 

@@ -27,10 +27,12 @@ sweeps (§2.1: e.g. SSDs) reuse one prepared DAG.
 
 Everything is f64 (times in seconds need more than f32's 7 digits to
 reproduce the oracle's FIFO tie-breaking), or f32 under
-``REPRO_SIM_X64=0`` (`core.x64`). The host builds f64 NumPy arrays and
-rounds them to `x64.sim_dtype()` where they become tensors, as the
-reference's ``jnp.asarray`` does: the op arrays, the fault arrays and
-the service-time vectors; every step after that runs in that dtype.
+``REPRO_SIM_X64=0`` (`core.x64`). The compiled DAG's arrays are f64 and
+are rounded to `x64.sim_dtype()` where they become a batch's rows, as
+the reference's ``jnp.asarray`` does: on the host, or on a card where
+it builds the rows (`DeviceOrder`); the service-time vectors are
+rounded on the host; every step after that runs in that dtype. The
+estimated-start order is f64 in either mode.
 Each constructor below names its dtype because `torch.zeros(n)` alone
 is f32. Each arithmetic step is its own eager PyTorch op, in the
 reference's order, so scan-mode results are element-wise equal to the
@@ -42,7 +44,7 @@ card is present; ``device="cpu"`` runs the same code on the host.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,6 +57,7 @@ from .compile import (CLS_CLIENT, CLS_MANAGER, CLS_NET_LOCAL, CLS_NET_REMOTE,
                       CLS_STORAGE, N_CLS, MicroOps)
 from .faults import DEAD_TIME
 from .ref_sim import durations as _ref_durations
+from .ref_sim import rate_tables as _rate_tables_np
 from .types import PAPER_RAMDISK, RunReport, ServiceTimes
 from .x64 import sim_dtype
 
@@ -177,15 +180,11 @@ class FaultArrays:
         multiply by 1 and padded ops are alive, so padding stays inert."""
         dev = resolve_device(device)
         fdt = _np_float(dtype)
-        R = n_resources or ops.n_resources
         n, m = ops.n_ops, pad_to or ops.n_ops
-        rm = np.ones(R, dtype=np.float64)
-        if ops.res_mult is not None:
-            rm[:ops.n_resources] = ops.res_mult
         dd = np.zeros(m, dtype=np.float64)
         if ops.dead is not None:
             dd[:n] = ops.dead[perm] if perm is not None else ops.dead
-        return cls(res_mult=torch.from_numpy(rm.astype(fdt)).to(dev),
+        return cls(res_mult=_res_mult(ops, n_resources, dev, dtype),
                    dead=torch.from_numpy(dd.astype(fdt)).to(dev))
 
     @classmethod
@@ -224,6 +223,16 @@ def _np_float(dtype: Optional[torch.dtype]) -> type:
     if dt == torch.float32:
         return np.float32
     raise TypeError(f"the simulators run in float64 or float32, not {dt}")
+
+
+def _res_mult(ops: MicroOps, n_resources: Optional[int], dev: torch.device,
+              dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The per-resource multipliers, padded with 1.0 to ``n_resources``
+    (default the DAG's) and rounded to ``dtype`` on the host."""
+    rm = np.ones(n_resources or ops.n_resources, dtype=np.float64)
+    if ops.res_mult is not None:
+        rm[:ops.n_resources] = ops.res_mult
+    return torch.from_numpy(rm.astype(_np_float(dtype))).to(dev)
 
 
 def faulted(ops: MicroOps) -> bool:
@@ -309,6 +318,202 @@ def scan_order(ops: MicroOps, st_ref: ServiceTimes) -> np.ndarray:
     else:
         est_start = _scan_order_loop(ops, dur)
     return np.argsort(est_start, kind="stable").astype(np.int32)
+
+
+# the relaxation in `DeviceOrder.build` looks for its fixpoint once every
+# this many steps (one host sync each); steps past the fixpoint change
+# nothing, so a check can come late but never early
+RELAX_CHECK_EVERY = 8
+
+
+def _relax_starts(deps: torch.Tensor, dur: torch.Tensor
+                  ) -> Optional[torch.Tensor]:
+    """Estimated starts ``f64[N]`` of a DAG whose deps ``i32[N, MAXD]``
+    all point at earlier ops, by Jacobi relaxation to the fixpoint
+    (`DeviceOrder.build`); None if it is not reached within n + 1
+    steps, which only a NaN made on the way can cause. Three eager ops
+    a step: a gather of the deps' ends from a table whose slot 0 holds
+    0.0 (a missing dep, and one more slot an op, so the ``max`` floors
+    at 0.0), the ``max``, the ``+``."""
+    n, width = deps.shape[0], deps.shape[1] + 1
+    dev = dur.device
+    idx = torch.zeros((n, width), dtype=deps.dtype, device=dev)
+    idx[:, 1:] = deps + 1
+    idx = idx.view(-1)
+    ends = torch.zeros(n + 1, dtype=torch.float64, device=dev)
+    nxt = torch.zeros_like(ends)
+    got = torch.empty(n * width, dtype=torch.float64, device=dev)
+    start = torch.empty(n, dtype=torch.float64, device=dev)
+    for step in range(1, n + 2):
+        torch.index_select(ends, 0, idx, out=got)
+        torch.amax(got.view(n, width), dim=1, out=start)
+        torch.add(start, dur, out=nxt[1:])
+        if (step % RELAX_CHECK_EVERY == 0 or step == n + 1) \
+                and torch.equal(ends, nxt):
+            return start
+        ends, nxt = nxt, ends
+    return None
+
+
+def _orders_on_card(dev: torch.device) -> bool:
+    """Is a scan-mode row's order built on ``dev`` (`DeviceOrder`) rather
+    than on the host (`scan_order`)? The relaxation does O(n x depth)
+    work: a few ms on a card, slower than the level pass on a host CPU."""
+    return dev.type == "cuda"
+
+
+@dataclass
+class DeviceOrder:
+    """One DAG copied to a device as it was compiled (unpermuted), and
+    its estimated-start permutation built there: the same permutation
+    as `scan_order`, which stays the host's path and the reference the
+    tests hold this one to. `arrays` then permutes, renumbers and pads
+    the rows on the device.
+
+    The order is f64 whatever `x64.sim_dtype` says, as the host's is."""
+
+    ops: MicroOps
+    perm: torch.Tensor            # i64[N] estimated-start order
+    res: torch.Tensor             # i32[N]
+    cls: torch.Tensor             # i64[N]
+    nbytes: torch.Tensor          # f64[N]
+    reqs: torch.Tensor            # f64[N]
+    extra: torch.Tensor           # f64[N]
+    nlat: torch.Tensor            # f64[N]
+    deps: torch.Tensor            # i32[N, MAXD]
+    dead: Optional[torch.Tensor]  # f64[N], faulted DAGs only
+
+    @classmethod
+    def build(cls, ops: MicroOps, st_ref: ServiceTimes, *,
+              device: DeviceLike = "cuda") -> Optional["DeviceOrder"]:
+        """Copy the DAG to ``device`` and order it there, or None where
+        the host must: a DAG with no ops, a dep that points at a later
+        op (`scan_order`'s loop reads 0.0 for it), or a duration that is
+        not finite (one check, one host sync).
+
+        The estimated starts are the fixpoint of a Jacobi relaxation:
+        each step sets every op's start to the ``max`` of 0.0 and its
+        deps' ends, and its end to start + duration. With every dep
+        pointing at an earlier op the fixpoint is unique, and each op
+        holds there the same ``max`` of the same operands plus the same
+        duration as in `_scan_order_levels`; the stable sort then gives
+        the same permutation. An op at depth d is final after d + 1
+        steps, so the steps stop within n + 1."""
+        dev = resolve_device(device)
+        n = ops.n_ops
+        if n == 0:
+            return None
+
+        def up(a: np.ndarray) -> torch.Tensor:
+            # one copy straight from the array (which a DAG cache may
+            # have made read-only) to the device
+            return torch.tensor(a, device=dev)
+
+        res, deps = up(ops.res), up(ops.deps)
+        cls8 = up(ops.cls).to(torch.int64)
+        nbytes, reqs, extra, nlat = (up(ops.nbytes), up(ops.reqs),
+                                     up(ops.extra), up(ops.nlat))
+        dead = up(ops.dead) if ops.dead is not None else None
+        # one eager op a step, in `ref_sim.durations`' order, then
+        # `scan_order`'s lag: nothing fuses a multiply into an add
+        brate, rrate = (up(t) for t in _rate_tables_np(st_ref))
+        dur = (nbytes * brate.index_select(0, cls8)
+               + reqs * rrate.index_select(0, cls8) + extra)
+        if ops.res_mult is not None:
+            dur = dur * up(ops.res_mult).index_select(0, res)
+        if dead is not None:
+            dur = dur + dead * DEAD_TIME
+        dur = dur + nlat * st_ref.net_latency
+        ahead = torch.arange(n, dtype=deps.dtype, device=dev)[:, None]
+        if not bool(torch.isfinite(dur).all() & (deps < ahead).all()):
+            return None
+        start = _relax_starts(deps, dur)
+        if start is None:
+            return None
+        # + 0.0 turns -0.0 into 0.0: the host's sort takes them as equal,
+        # and a radix sort need not
+        perm = torch.sort(start + 0.0, stable=True).indices
+        return cls(ops=ops, perm=perm, res=res, cls=cls8, nbytes=nbytes,
+                   reqs=reqs, extra=extra, nlat=nlat, deps=deps, dead=dead)
+
+    def host_perm(self) -> np.ndarray:
+        """The permutation as `scan_order` returns it (int32, host)."""
+        return self.perm.to(torch.int32).cpu().numpy()
+
+    def arrays(self, pad_to: Optional[int] = None,
+               n_resources: Optional[int] = None, *,
+               dtype: Optional[torch.dtype] = None
+               ) -> Tuple[OpArrays, Optional[FaultArrays]]:
+        """The rows `OpArrays.from_micro_ops` and (for a faulted DAG)
+        `FaultArrays.from_micro_ops` build with this permutation, the
+        same ``pad_to``, ``n_resources`` and ``dtype``, built on the
+        device: gathered, deps renumbered through the inverse
+        permutation, padded with 0 (deps -1), floats rounded to
+        ``dtype`` there."""
+        ops, perm = self.ops, self.perm
+        dev = perm.device
+        fdt = sim_dtype() if dtype is None else dtype
+        _np_float(fdt)                               # f64 or f32 only
+        n = ops.n_ops
+        m = pad_to or n
+        assert m >= n
+
+        def take(t: torch.Tensor, dt: torch.dtype, fill=0) -> torch.Tensor:
+            out = torch.full((m,) + tuple(t.shape[1:]), fill, dtype=dt,
+                             device=dev)
+            out[:n] = t.index_select(0, perm)
+            return out
+
+        # slot 0 maps "no dep" (-1 + 1) to -1; slot k + 1 op k to its place
+        inv = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
+        inv[perm + 1] = torch.arange(n, dtype=torch.int32, device=dev)
+        deps = inv.index_select(0, (self.deps + 1).view(-1)).view(n, -1)
+        arr = OpArrays(res=take(self.res, torch.int32),
+                       cls=take(self.cls, torch.int64),
+                       nbytes=take(self.nbytes, fdt), reqs=take(self.reqs, fdt),
+                       extra=take(self.extra, fdt), nlat=take(self.nlat, fdt),
+                       deps=take(deps, torch.int32, fill=-1))
+        if not faulted(ops):
+            return arr, None
+        dead = (take(self.dead, fdt) if self.dead is not None
+                else torch.zeros(m, dtype=fdt, device=dev))
+        return arr, FaultArrays(res_mult=_res_mult(ops, n_resources, dev, fdt),
+                                dead=dead)
+
+
+def estimated_order(ops: MicroOps, st_ref: ServiceTimes,
+                    device: DeviceLike = "cuda"
+                    ) -> Union[np.ndarray, DeviceOrder]:
+    """The estimated-start order of one DAG for rows on ``device``: a
+    `DeviceOrder` where ``device`` is a card and the DAG allows it,
+    else `scan_order`'s host permutation. The choice rests on the
+    device and the DAG alone; both give the same permutation."""
+    dev = resolve_device(device)
+    if _orders_on_card(dev):
+        order = DeviceOrder.build(ops, st_ref, device=dev)
+        if order is not None:
+            return order
+    return scan_order(ops, st_ref)
+
+
+def prepped_arrays(ops: MicroOps, order: Union[None, np.ndarray, DeviceOrder],
+                   *, pad_to: Optional[int] = None,
+                   n_resources: Optional[int] = None,
+                   device: DeviceLike = "cuda",
+                   dtype: Optional[torch.dtype] = None
+                   ) -> Tuple[OpArrays, Optional[FaultArrays]]:
+    """One DAG's rows on ``device`` in ``order`` (None: op order; a host
+    permutation; a `DeviceOrder`, whose device builds them): `OpArrays`,
+    and `FaultArrays` for a faulted DAG (None for a healthy one)."""
+    if isinstance(order, DeviceOrder):
+        return order.arrays(pad_to, n_resources, dtype=dtype)
+    arr = OpArrays.from_micro_ops(ops, pad_to=pad_to, perm=order,
+                                  device=device, dtype=dtype)
+    farr = (FaultArrays.from_micro_ops(ops, n_resources=n_resources,
+                                       pad_to=pad_to, perm=order,
+                                       device=device, dtype=dtype)
+            if faulted(ops) else None)
+    return arr, farr
 
 
 def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -480,16 +685,16 @@ def simulate(ops: MicroOps, st: ServiceTimes, *, exact: bool = False,
     (`SweepEngine.simulate_one` passes its engine's)."""
     dev = resolve_device(device)
     dt = sim_dtype()
-    perm = None if exact else scan_order(ops, st)
-    a = OpArrays.from_micro_ops(ops, perm=perm, device=dev, dtype=dt).batched()
-    fa = (FaultArrays.from_micro_ops(ops, perm=perm, device=dev,
-                                     dtype=dt).batched()
-          if faulted(ops) else None)
-    makespan, end = simulate_arrays(a, st_tensor(st_to_vec(st)[None], dev, dt),
+    order = None if exact else estimated_order(ops, st, dev)
+    a, fa = prepped_arrays(ops, order, device=dev, dtype=dt)
+    makespan, end = simulate_arrays(a.batched(),
+                                    st_tensor(st_to_vec(st)[None], dev, dt),
                                     n_resources=ops.n_resources, exact=exact,
-                                    f=fa, use_kernel=use_kernel, stats=stats)
+                                    f=None if fa is None else fa.batched(),
+                                    use_kernel=use_kernel, stats=stats)
     makespan = float(makespan[0].cpu())
     end = end[0].cpu().numpy()
+    perm = order.host_perm() if isinstance(order, DeviceOrder) else order
     if perm is not None:
         inv = np.empty_like(perm)
         inv[perm] = np.arange(perm.shape[0], dtype=perm.dtype)
@@ -531,17 +736,18 @@ def simulate_batch(ops_list: Sequence[MicroOps], st_list: Sequence[ServiceTimes]
     dt = sim_dtype()
     n_max = max(o.n_ops for o in ops_list)
     r_max = max(o.n_resources for o in ops_list)
-    perms = [None if exact else scan_order(o, s)
-             for o, s in zip(ops_list, st_list)]
-    batch = OpArrays.stack([
-        OpArrays.from_micro_ops(o, pad_to=n_max, perm=p, device=dev, dtype=dt)
-        for o, p in zip(ops_list, perms)])
+    rows = [prepped_arrays(o, None if exact else estimated_order(o, s, dev),
+                           pad_to=n_max, n_resources=r_max, device=dev,
+                           dtype=dt)
+            for o, s in zip(ops_list, st_list)]
+    batch = OpArrays.stack([a for a, _ in rows])
     fbatch = None
     if any(faulted(o) for o in ops_list):
+        # a healthy DAG's fault rows are all ones and zeros, in any order
         fbatch = FaultArrays.stack([
-            FaultArrays.from_micro_ops(o, n_resources=r_max, pad_to=n_max,
-                                       perm=p, device=dev, dtype=dt)
-            for o, p in zip(ops_list, perms)])
+            f if f is not None else FaultArrays.from_micro_ops(
+                o, n_resources=r_max, pad_to=n_max, device=dev, dtype=dt)
+            for o, (_, f) in zip(ops_list, rows)])
     st_vecs = st_tensor(np.stack([st_to_vec(s) for s in st_list]), dev, dt)
     makespan, _ = simulate_arrays(batch, st_vecs, n_resources=r_max,
                                   exact=exact, f=fbatch)
@@ -553,23 +759,25 @@ def sweep_service_times(ops: MicroOps, st_vecs: np.ndarray, *,
                         exact: bool = False, device: DeviceLike = "cuda",
                         tracer=None, stats=None) -> np.ndarray:
     """What-if hardware sweep (§2.1): one DAG, many ServiceTimes vectors.
-    ``tracer`` records the host parts (``what_if.scan_order``,
-    ``what_if.arrays``) and the scan with its copy back
-    (``what_if.scan``); ``stats`` counts kernel launches, as in
-    `simulate_arrays`."""
+    ``tracer`` records the prep (``what_if.scan_order`` with ``on_card``
+    1 where the device built the order, ``what_if.arrays``: on a card
+    both are mostly its work, see `estimated_order`) and the scan with
+    its copy back (``what_if.scan``); ``stats`` counts kernel launches,
+    as in `simulate_arrays`."""
     tracer = NULL_TRACER if tracer is None else tracer
     dev = resolve_device(device)
     dt = sim_dtype()
-    with tracer.span("what_if.scan_order", phase="host-prep"):
-        perm = None if exact else scan_order(ops, st_ref or PAPER_RAMDISK)
+    t0 = tracer.clock()
+    order = None if exact else estimated_order(ops, st_ref or PAPER_RAMDISK,
+                                               dev)
+    tracer.record("what_if.scan_order", t0, tracer.clock(),
+                  phase="host-prep",
+                  on_card=int(isinstance(order, DeviceOrder)))
     c = st_vecs.shape[0]
     with tracer.span("what_if.arrays", phase="host-prep"):
-        batch = OpArrays.from_micro_ops(ops, perm=perm, device=dev,
-                                        dtype=dt).expand(c)
-        fbatch = None
-        if faulted(ops):
-            fbatch = FaultArrays.from_micro_ops(ops, perm=perm, device=dev,
-                                                dtype=dt).expand(c)
+        arr, farr = prepped_arrays(ops, order, device=dev, dtype=dt)
+        batch = arr.expand(c)
+        fbatch = None if farr is None else farr.expand(c)
         sv = st_tensor(st_vecs, dev, dt)
     with tracer.span("what_if.scan", phase="device-sim"):
         makespan, _ = simulate_arrays(batch, sv, n_resources=ops.n_resources,

@@ -189,32 +189,153 @@ CORPUS = {
 }
 
 
+PROFILES = ("PAPER_RAMDISK", "PAPER_HDD")
+
+
+def assert_device_order_is_host_order(jo, to):
+    """`torch_sim.DeviceOrder`, run on CPU tensors, orders the DAG as
+    the reference's `scan_order` and the port's host one do, under
+    both paper profiles."""
+    for p in PROFILES:
+        order = torch_sim.DeviceOrder.build(to, getattr(T, p), device="cpu")
+        assert order is not None, p
+        got, want = order.host_perm(), jax_sim.scan_order(jo, getattr(J, p))
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want, err_msg=p)
+        np.testing.assert_array_equal(
+            got, torch_sim.scan_order(to, getattr(T, p)), err_msg=p)
+
+
+def reference_ops(to):
+    """The reference's `MicroOps` over the port's arrays."""
+    return J.MicroOps(**{f: getattr(to, f) for f in ARRAYS},
+                      n_resources=to.n_resources)
+
+
 @pytest.mark.parametrize("name", list(CORPUS))
 def test_compile_parity_corpus(name):
-    """The port's block emitter builds the reference's DAG, to the bit."""
+    """The port's block emitter builds the reference's DAG, to the bit,
+    and the device orders it as the host does."""
     jwf, jcfg, la = CORPUS[name](J, JW)
     twf, tcfg, _ = CORPUS[name](T, TW)
     assert jwf.fingerprint() == twf.fingerprint()
     assert jcfg.fingerprint() == tcfg.fingerprint()
     counts = {}
     to = T.compile_workflow(twf, tcfg, locality_aware=la, counts=counts)
-    assert_same_micro_ops(J.compile_workflow(jwf, jcfg, locality_aware=la), to)
+    jo = J.compile_workflow(jwf, jcfg, locality_aware=la)
+    assert_same_micro_ops(jo, to)
     assert 0 < counts["bulk_ops"] < to.n_ops
     for f in ARRAYS:
         a = getattr(to, f)
         assert a is None or a.flags.c_contiguous, f
+    assert_device_order_is_host_order(jo, to)
 
 
 @pytest.mark.parametrize("name", WORKLOADS)
 def test_scan_order_levels_equal_loop(name):
     """The level-wise NumPy forward pass and the op-by-op loop give the
-    same estimated starts, to the bit (same max and + per op)."""
+    same estimated starts, to the bit (same max and + per op), and the
+    device's relaxation the same order."""
     _, twf = workflow_pair(name)
     _, tcfg = config_pair("faulted", 2)
     ops = T.compile_workflow(twf, tcfg)
     dur = t_ref.durations(ops, T.PAPER_HDD) + ops.nlat * T.PAPER_HDD.net_latency
     np.testing.assert_array_equal(torch_sim._scan_order_levels(ops, dur),
                                   torch_sim._scan_order_loop(ops, dur))
+    assert_device_order_is_host_order(reference_ops(ops), ops)
+
+
+@pytest.mark.parametrize("n_app", [2, 3, 4, 5])
+def test_device_order_on_faulted_blast(n_app):
+    """Small BLAST jobs with storage rank 1 lost before each task in turn
+    (and never) beside a disk 8x slow on rank 0, at replication 1 and 2."""
+    for kill in [None, *range(n_app + 1)]:
+        faults = T.FaultScenario(
+            failures=(T.NodeFailure(1, after_tasks=kill),),
+            degraded=(T.DiskDegradation(0, 8.0),))
+        for r in (1, 2):
+            cfg = T.partitioned_config(n_app, 3, chunk_size=512 * 1024,
+                                       replication=r, faults=faults)
+            ops = T.compile_workflow(
+                TW.blast(n_app, n_queries=12, db_mb=16), cfg)
+            assert torch_sim.faulted(ops)
+            assert_device_order_is_host_order(reference_ops(ops), ops)
+
+
+def device_array_case(name):
+    _, twf = workflow_pair(name)
+    _, tcfg = config_pair("faulted" if name == "pipeline" else "healthy", 2)
+    return T.compile_workflow(twf, tcfg)
+
+
+@pytest.mark.parametrize("x64", [True, False])
+@pytest.mark.parametrize("name", ["blast", "pipeline"])
+def test_device_arrays_equal_host_arrays(name, x64, monkeypatch):
+    """The rows `DeviceOrder.arrays` permutes, renumbers, pads and rounds
+    on the device are the host's, `torch.equal`, in f64 and in f32
+    (``REPRO_SIM_X64=0``), at two pad sizes; the order stays f64."""
+    monkeypatch.setenv("REPRO_SIM_X64", "1" if x64 else "0")
+    ops = device_array_case(name)
+    st = T.PAPER_HDD
+    order = torch_sim.DeviceOrder.build(ops, st, device="cpu")
+    perm = torch_sim.scan_order(ops, st)
+    np.testing.assert_array_equal(order.host_perm(), perm)
+    for pad, r_pad in ((None, None), (1 << ops.n_ops.bit_length(),
+                                      ops.n_resources + 5)):
+        arr, farr = order.arrays(pad, r_pad)
+        want = torch_sim.OpArrays.from_micro_ops(ops, pad, perm=perm, device="cpu")
+        assert arr.nbytes.dtype == (torch.float64 if x64 else torch.float32)
+        for f in torch_sim.OpArrays._NAMES:
+            a, b = getattr(arr, f), getattr(want, f)
+            assert a.dtype == b.dtype and torch.equal(a, b), f
+        assert (farr is None) == (name != "pipeline")
+        if farr is not None:
+            fwant = torch_sim.FaultArrays.from_micro_ops(ops, r_pad, pad, perm=perm,
+                                                 device="cpu")
+            for f in torch_sim.FaultArrays._NAMES:
+                a, b = getattr(farr, f), getattr(fwant, f)
+                assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
+def small_blast(forward_dep=False):
+    to = T.compile_workflow(TW.blast(3, n_queries=12, db_mb=16),
+                            T.partitioned_config(3, 3, chunk_size=T.MB))
+    if not forward_dep:
+        return to
+    deps = to.deps.copy()
+    deps[2, 0] = to.n_ops - 1                      # forward reference
+    return dataclasses.replace(to, deps=deps)
+
+
+@pytest.mark.parametrize("case", ["plain", "forward_dep", "non_finite"])
+def test_engine_orders_on_the_device_unless_the_dag_forbids(case,
+                                                            monkeypatch):
+    """With rows ordered on the device (here a CPU standing in for the
+    card), a DAG with a forward dep or a duration that is not finite
+    takes the host path and counts in ``orders_on_host``; the rows, and
+    so the makespans, are the host path's either way."""
+    ops = small_blast(forward_dep=case == "forward_dep")
+    st = (T.PAPER_RAMDISK.replace(storage=float("inf"))
+          if case == "non_finite" else T.PAPER_RAMDISK)
+    on_card = torch_sim.DeviceOrder.build(ops, st, device="cpu") is not None
+    assert on_card == (case == "plain")
+    host = T.SweepEngine(device="cpu")
+    want = host.simulate_batch([ops], [st])
+    monkeypatch.setattr(torch_sim, "_orders_on_card", lambda dev: True)
+    eng = T.SweepEngine(device="cpu")
+    got = eng.simulate_batch([ops], [st])
+    np.testing.assert_array_equal(got, want)
+    (b, _), = eng.cached_batches()
+    (hb, _), = host.cached_batches()
+    for f in torch_sim.OpArrays._NAMES:
+        assert torch.equal(getattr(b, f), getattr(hb, f)), f
+    s = eng.stats
+    assert (s.orders_on_card, s.orders_on_host) == (int(on_card),
+                                                    int(not on_card))
+    assert s.orders_on_card + s.orders_on_host == s.row_misses == 1
+    assert (host.stats.orders_on_card, host.stats.orders_on_host) == (0, 1)
+    eng.simulate_batch([ops], [st], exact=True)     # exact mode orders nothing
+    assert s.orders_on_card + s.orders_on_host == 1 < s.row_misses
 
 
 def test_scan_order_forward_dep_takes_the_loop():

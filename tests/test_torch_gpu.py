@@ -24,7 +24,7 @@ import pytest
 import torch
 
 import repro_torch.core as T
-from repro_torch.core import interop, torch_sim
+from repro_torch.core import interop, ref_sim, torch_sim
 from repro_torch.core import workloads as TW
 from repro_torch.core.sweep.engine import CacheStats
 from repro_torch import configs as TC
@@ -254,6 +254,83 @@ def test_negative_net_latency_on_the_card_equals_the_plain_path():
     rep = torch_sim.simulate(two, T.PAPER_RAMDISK.replace(net_latency=-0.5),
                              stats=stats)
     assert stats.kernel_launches == 1 and rep.makespan == 2.0
+
+
+def _rows_by_key(engine):
+    return {k: (a, f) for k, (_, a, f) in engine._rows.items()}
+
+
+@pytest.mark.gpu
+def test_rows_ordered_on_the_card_equal_the_host_rows(monkeypatch):
+    """A CUDA engine orders every cold scan-mode row on the card
+    (`torch_sim.DeviceOrder`), healthy and faulted, in f64 and f32: each
+    row is `torch.equal` to the row the host path builds (the same
+    engine with the order left to `scan_order`), and the makespans are
+    a CPU engine's."""
+    need_card()
+    healthy = T.grid(n_nodes=[8], chunk_sizes=[256 * 1024, T.MB])
+    faulted = T.grid(n_nodes=[8], chunk_sizes=[256 * 1024, T.MB],
+                     replications=(1, 2),
+                     faults=(T.parse_faults("disk=0:8,kill=1@1"),))
+    ops = [T.compile_workflow(TW.blast(c.n_app, n_queries=12, db_mb=64),
+                              c.to_config())
+           for c in healthy + faulted]
+    assert any(torch_sim.faulted(o) for o in ops)
+    sts = [(T.PAPER_RAMDISK, T.PAPER_HDD)[i % 2] for i in range(len(ops))]
+    card, cpu = T.SweepEngine(), T.SweepEngine(device="cpu")
+    got = {dt: card.simulate_batch(ops, sts, dtype=dt)
+           for dt in (torch.float64, torch.float32)}
+    s = card.stats
+    assert s.orders_on_card == s.row_misses == 2 * len(ops)
+    assert s.orders_on_host == 0
+    monkeypatch.setattr(torch_sim, "_orders_on_card", lambda dev: False)
+    host = T.SweepEngine()
+    for dt, mk in got.items():
+        np.testing.assert_array_equal(mk, host.simulate_batch(ops, sts,
+                                                              dtype=dt))
+        np.testing.assert_array_equal(mk, cpu.simulate_batch(ops, sts,
+                                                             dtype=dt))
+    assert host.stats.orders_on_host == 2 * len(ops)
+    rows, want = _rows_by_key(card), _rows_by_key(host)
+    assert rows.keys() == want.keys()
+    for k, (a, f) in rows.items():
+        wa, wf = want[k]
+        assert a.res.device.type == "cuda"
+        for n in torch_sim.OpArrays._NAMES:
+            assert torch.equal(getattr(a, n), getattr(wa, n)), n
+        assert (f is None) == (wf is None)
+        if f is not None:
+            assert torch.equal(f.res_mult, wf.res_mult)
+            assert torch.equal(f.dead, wf.dead)
+
+
+def _largest_dags():
+    """The largest DAG of each cell that orders cold rows: blast-s1 at
+    n_app 18 and 256 KB (659,412 ops), the what-if cell's pipeline DSS
+    at 256 KB (237,337 ops)."""
+    (blast,) = T.grid([20], partitions=[(18, 1)], chunk_sizes=[256 * 1024])
+    yield 659412, T.compile_workflow(
+        TW.blast(18, n_queries=100, db_mb=1710), blast.to_config(),
+        locality_aware=True)
+    yield 237337, T.compile_workflow(
+        TW.pipeline(wass=False),
+        T.collocated_config(20, chunk_size=256 * 1024), locality_aware=False)
+
+
+@pytest.mark.gpu
+def test_relaxation_on_the_largest_dags_reaches_the_host_starts():
+    need_card()
+    st = T.PAPER_RAMDISK
+    for n_ops, ops in _largest_dags():
+        assert ops.n_ops == n_ops
+        dur = ref_sim.durations(ops, st) + ops.nlat * st.net_latency
+        got = torch_sim._relax_starts(torch.tensor(ops.deps, device="cuda"),
+                                      torch.tensor(dur, device="cuda"))
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      torch_sim._scan_order_levels(ops, dur))
+        order = torch_sim.DeviceOrder.build(ops, st, device="cuda")
+        np.testing.assert_array_equal(order.host_perm(),
+                                      torch_sim.scan_order(ops, st))
 
 
 def _backend_grid():

@@ -1,7 +1,8 @@
 """Request-scoped spans of the port (`repro_torch.obs.trace`) where the
 work happens: the advisor service's request, queue wait and sweep, one
 ``compile_dag`` span per cold DAG compile with its op count and how many
-of them were emitted as blocks, and the what-if path's four parts. CPU,
+of them were emitted as blocks, the what-if path's four parts, and where
+each cold row's estimated-start order was built. CPU,
 but for one ``gpu`` case that counts the what-if path's kernel launches
 on the card.
 
@@ -292,6 +293,47 @@ def test_what_if_with_tracing_off_is_the_untraced_path():
     assert na == nb == 1 and sa == sb
     assert sa["kernel_launches"] == 0          # the CPU runs the plain loop
     assert NULL_TRACER.spans() == ()
+
+
+# -- where a cold row's order is built ---------------------------------------------
+
+@pytest.mark.parametrize("on_card", [False, True])
+def test_prep_spans_and_counters_say_where_rows_were_ordered(on_card,
+                                                             monkeypatch):
+    """Each ``prep[...]`` span says how many of its rows the device
+    ordered (``on_card``), ``what_if.scan_order`` whether it did; the
+    engine's ``orders_on_card`` and ``orders_on_host`` count the
+    scan-mode rows prepped (the row misses outside exact mode) and
+    reset with the rest. A CPU stands in for the card."""
+    if on_card:
+        monkeypatch.setattr(torch_sim, "_orders_on_card", lambda dev: True)
+    tr = Tracer()
+    sess = T.SweepSession(T.InlineBackend(), device="cpu", tracer=tr)
+    eng = sess.engine
+    wf, cfg, profiles = what_if_case()
+    ops = [T.compile_workflow(wf, c) for c in (
+        cfg, dataclasses.replace(cfg, chunk_size=512 * 1024),
+        what_if_case("disk=0:8,kill=1@1")[1])]
+    for _ in range(2):                             # the second: row hits
+        eng.simulate_batch(ops, [ST, T.PAPER_HDD, ST])
+    preps = [meta(s) for s in tr.spans() if s.name.startswith("prep[")]
+    # two buckets a sweep: the faulted DAG rides with the 1 MB one
+    assert len(preps) == 4 and {m["faulted"] for m in preps} == {0, 1}
+    st = sess.stats
+    assert sum(m["on_card"] for m in preps) == st.orders_on_card
+    assert st.orders_on_card + st.orders_on_host == st.row_misses == 3
+    assert st.orders_on_card == (3 if on_card else 0)
+    assert all(m["on_card"] <= m["rows"] for m in preps)
+    eng.simulate_batch(ops[:1], [ST], exact=True)  # exact orders nothing
+    assert st.row_misses == 4 and st.orders_on_card + st.orders_on_host == 3
+
+    tr.clear()
+    T.Predictor(ST, session=sess).what_if(wf, cfg, profiles)
+    (part,) = [s for s in tr.spans() if s.name == "what_if.scan_order"]
+    assert meta(part) == {"on_card": int(on_card)}
+    assert st.orders_on_card + st.orders_on_host == 3
+    st.reset()
+    assert (st.orders_on_card, st.orders_on_host, st.row_misses) == (0, 0, 0)
 
 
 @pytest.mark.gpu
