@@ -1698,8 +1698,8 @@ def phase_exact_scaling(core, n_pads=EXACT_SCALING_N, n_cand=3):
         np.stack([torch_sim.st_to_vec(st)] * n_cand), dev)
     rows = []
     for n_pad in n_pads:
-        a = torch_sim.OpArrays.from_micro_ops(ops, pad_to=n_pad,
-                                              device=dev).expand(n_cand)
+        a = torch_sim.estimated_order(ops, None, dev).arrays(
+            n_pad)[0].expand(n_cand)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mk, _ = torch_sim.simulate_arrays(a, st_vecs,

@@ -28,9 +28,10 @@ device count are padded into the existing power-of-two buckets
 
 Below the callables sit two caches that keep warm sweeps device-bound
 (a cold row's prep — the DAG's copy to the device, its estimated-start
-order and its permuted, padded arrays, built on a card by
-`torch_sim.DeviceOrder` and on a CPU engine by `scan_order` and NumPy —
-otherwise outweighs the simulation itself):
+order (`torch_sim.estimated_order`: built on a card there, on a CPU
+engine by `scan_order`) and its permuted, padded arrays
+(`torch_sim.DeviceOrder.arrays`, on the engine's device) — otherwise
+outweighs the simulation itself):
 
 * a **row cache** of prepped `OpArrays`, keyed by (DAG identity, service
   times, ops bucket, exact, dtype) — subset re-sweeps (halving rounds,
@@ -110,8 +111,8 @@ class CacheStats:
     row_hits: int = 0             # prepped-OpArrays cache traffic
     row_misses: int = 0
     orders_on_card: int = 0       # scan-mode rows (row misses) whose order
-                                  # and arrays the card built
-                                  # (`torch_sim.DeviceOrder`)
+                                  # the card built
+                                  # (`torch_sim.estimated_order`)
     orders_on_host: int = 0       # ... that `torch_sim.scan_order` ordered
                                   # on the host (a CPU engine, a forward
                                   # dep, a duration not finite)
@@ -267,11 +268,6 @@ class SweepEngine:
             self._mesh = mesh
         return self
 
-    def use_devices(self, devices: _shard.DevicesLike) -> "SweepEngine":
-        """`set_mesh` with ``devices`` resolved by `shard.resolve_mesh` on
-        the engine's device type (the reference engine's spelling)."""
-        return self.set_mesh(_shard.resolve_mesh(devices, self.device))
-
     def bucket_shards(self, n_rows: int, n_ops_bucket: int) -> int:
         """Adaptive placement: shards for a bucket of ``n_rows`` real
         candidates whose DAGs pad to ``n_ops_bucket`` ops. 1 = keep the
@@ -357,16 +353,12 @@ class SweepEngine:
             self._rows.move_to_end(key)
             return key, hit[1], hit[2]
         self.stats.row_misses += 1
-        order = None
+        order = torch_sim.estimated_order(ops, None if exact else st,
+                                          self.device)
         if not exact:
-            order = torch_sim.estimated_order(ops, st, self.device)
-            if isinstance(order, torch_sim.DeviceOrder):
-                self.stats.orders_on_card += 1
-            else:
-                self.stats.orders_on_host += 1
-        arr, farr = torch_sim.prepped_arrays(ops, order, pad_to=n_pad,
-                                             n_resources=r_pad,
-                                             device=self.device, dtype=dtype)
+            self.stats.orders_on_card += int(order.on_card)
+            self.stats.orders_on_host += int(not order.on_card)
+        arr, farr = order.arrays(n_pad, r_pad, dtype=dtype)
         self._rows[key] = (ops, arr, farr)
         if len(self._rows) > self.max_row_entries:
             self._rows.popitem(last=False)

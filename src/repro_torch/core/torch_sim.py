@@ -29,10 +29,10 @@ Everything is f64 (times in seconds need more than f32's 7 digits to
 reproduce the oracle's FIFO tie-breaking), or f32 under
 ``REPRO_SIM_X64=0`` (`core.x64`). The compiled DAG's arrays are f64 and
 are rounded to `x64.sim_dtype()` where they become a batch's rows, as
-the reference's ``jnp.asarray`` does: on the host, or on a card where
-it builds the rows (`DeviceOrder`); the service-time vectors are
-rounded on the host; every step after that runs in that dtype. The
-estimated-start order is f64 in either mode.
+the reference's ``jnp.asarray`` does: on the rows' device
+(`DeviceOrder.arrays`); the fault multipliers and the service-time
+vectors are rounded on the host; every step after that runs in that
+dtype. The estimated-start order is f64 in either mode.
 Each constructor below names its dtype because `torch.zeros(n)` alone
 is f32. Each arithmetic step is its own eager PyTorch op, in the
 reference's order, so scan-mode results are element-wise equal to the
@@ -44,7 +44,7 @@ card is present; ``device="cpu"`` runs the same code on the host.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,8 +94,9 @@ def _fields(obj, names) -> tuple:
 @dataclass
 class OpArrays:
     """Device-side compiled DAG (possibly padded for batching). Built
-    per DAG with shapes ``[N]`` / ``[N, MAXD]``; `stack` / `batched` /
-    `expand` add the leading candidate axis the simulator works on."""
+    per DAG by `DeviceOrder.arrays` with shapes ``[N]`` / ``[N, MAXD]``;
+    `stack` / `batched` / `expand` add the leading candidate axis the
+    simulator works on."""
 
     res: torch.Tensor      # i32[N]   (the sweep-scan kernel reads i32)
     cls: torch.Tensor      # i64[N]   (an index tensor: int8 cannot index)
@@ -106,39 +107,6 @@ class OpArrays:
     deps: torch.Tensor     # i32[N, MAXD]
 
     _NAMES = ("res", "cls", "nbytes", "reqs", "extra", "nlat", "deps")
-
-    @classmethod
-    def from_micro_ops(cls, ops: MicroOps, pad_to: Optional[int] = None,
-                       perm: Optional[np.ndarray] = None, *,
-                       device: DeviceLike = "cuda",
-                       dtype: Optional[torch.dtype] = None) -> "OpArrays":
-        """``dtype`` (default `x64.sim_dtype()`) is what the f64 arrays
-        are rounded to."""
-        dev = resolve_device(device)
-        fdt = _np_float(dtype)
-        n = ops.n_ops
-        m = pad_to or n
-        assert m >= n
-
-        def prep(a, fill=0, dtype=None):
-            a = a[perm] if perm is not None else a
-            out = np.full((m,) + a.shape[1:], fill, dtype=dtype or a.dtype)
-            out[:n] = a
-            return torch.from_numpy(out).to(dev)
-
-        deps = ops.deps
-        if perm is not None:
-            inv = np.empty(n, dtype=np.int32)
-            inv[perm] = np.arange(n, dtype=np.int32)
-            deps = np.where(deps >= 0, inv[deps], -1).astype(np.int32)
-
-        return cls(res=prep(ops.res),
-                   cls=prep(ops.cls, dtype=np.int64),
-                   nbytes=prep(ops.nbytes, dtype=fdt),
-                   reqs=prep(ops.reqs, dtype=fdt),
-                   extra=prep(ops.extra, dtype=fdt),
-                   nlat=prep(ops.nlat, dtype=fdt),
-                   deps=prep(deps, fill=-1))
 
     @classmethod
     def stack(cls, rows: Sequence["OpArrays"]) -> "OpArrays":
@@ -168,24 +136,6 @@ class FaultArrays:
     dead: torch.Tensor       # f[N] 1.0 = unservable op (costs DEAD_TIME)
 
     _NAMES = ("res_mult", "dead")
-
-    @classmethod
-    def from_micro_ops(cls, ops: MicroOps, n_resources: Optional[int] = None,
-                       pad_to: Optional[int] = None,
-                       perm: Optional[np.ndarray] = None, *,
-                       device: DeviceLike = "cuda",
-                       dtype: Optional[torch.dtype] = None) -> "FaultArrays":
-        """Padded/permuted fault arrays matching an `OpArrays` built with
-        the same ``pad_to``/``perm`` (and ``dtype``). Padded resources
-        multiply by 1 and padded ops are alive, so padding stays inert."""
-        dev = resolve_device(device)
-        fdt = _np_float(dtype)
-        n, m = ops.n_ops, pad_to or ops.n_ops
-        dd = np.zeros(m, dtype=np.float64)
-        if ops.dead is not None:
-            dd[:n] = ops.dead[perm] if perm is not None else ops.dead
-        return cls(res_mult=_res_mult(ops, n_resources, dev, dtype),
-                   dead=torch.from_numpy(dd.astype(fdt)).to(dev))
 
     @classmethod
     def neutral(cls, n_ops: int, n_resources: int, *,
@@ -320,7 +270,7 @@ def scan_order(ops: MicroOps, st_ref: ServiceTimes) -> np.ndarray:
     return np.argsort(est_start, kind="stable").astype(np.int32)
 
 
-# the relaxation in `DeviceOrder.build` looks for its fixpoint once every
+# the relaxation in `_card_order` looks for its fixpoint once every
 # this many steps (one host sync each); steps past the fixpoint change
 # nothing, so a check can come late but never early
 RELAX_CHECK_EVERY = 8
@@ -330,7 +280,7 @@ def _relax_starts(deps: torch.Tensor, dur: torch.Tensor
                   ) -> Optional[torch.Tensor]:
     """Estimated starts ``f64[N]`` of a DAG whose deps ``i32[N, MAXD]``
     all point at earlier ops, by Jacobi relaxation to the fixpoint
-    (`DeviceOrder.build`); None if it is not reached within n + 1
+    (`_card_order`); None if it is not reached within n + 1
     steps, which only a NaN made on the way can cause. Three eager ops
     a step: a gather of the deps' ends from a table whose slot 0 holds
     0.0 (a missing dep, and one more slot an op, so the ``max`` floors
@@ -356,24 +306,25 @@ def _relax_starts(deps: torch.Tensor, dur: torch.Tensor
 
 
 def _orders_on_card(dev: torch.device) -> bool:
-    """Is a scan-mode row's order built on ``dev`` (`DeviceOrder`) rather
-    than on the host (`scan_order`)? The relaxation does O(n x depth)
-    work: a few ms on a card, slower than the level pass on a host CPU."""
+    """Does `estimated_order` build a scan-mode row's order on ``dev``
+    (`_card_order`) rather than on the host (`scan_order`)? The
+    relaxation does O(n x depth) work: a few ms on a card, slower than
+    the level pass on a host CPU."""
     return dev.type == "cuda"
 
 
 @dataclass
 class DeviceOrder:
-    """One DAG copied to a device as it was compiled (unpermuted), and
-    its estimated-start permutation built there: the same permutation
-    as `scan_order`, which stays the host's path and the reference the
-    tests hold this one to. `arrays` then permutes, renumbers and pads
-    the rows on the device.
-
-    The order is f64 whatever `x64.sim_dtype` says, as the host's is."""
+    """One DAG copied to the rows' device as it was compiled
+    (unpermuted), the order its rows take there, and whether the device
+    built that order (`estimated_order` makes it). `arrays` permutes,
+    renumbers, pads and rounds the rows on that device: the one row
+    builder, whatever the order's source."""
 
     ops: MicroOps
-    perm: torch.Tensor            # i64[N] estimated-start order
+    perm: torch.Tensor            # i64[N] estimated-start order (op order in
+                                  # exact mode)
+    on_card: bool                 # the device built ``perm`` (`_card_order`)
     res: torch.Tensor             # i32[N]
     cls: torch.Tensor             # i64[N]
     nbytes: torch.Tensor          # f64[N]
@@ -383,73 +334,16 @@ class DeviceOrder:
     deps: torch.Tensor            # i32[N, MAXD]
     dead: Optional[torch.Tensor]  # f64[N], faulted DAGs only
 
-    @classmethod
-    def build(cls, ops: MicroOps, st_ref: ServiceTimes, *,
-              device: DeviceLike = "cuda") -> Optional["DeviceOrder"]:
-        """Copy the DAG to ``device`` and order it there, or None where
-        the host must: a DAG with no ops, a dep that points at a later
-        op (`scan_order`'s loop reads 0.0 for it), or a duration that is
-        not finite (one check, one host sync).
-
-        The estimated starts are the fixpoint of a Jacobi relaxation:
-        each step sets every op's start to the ``max`` of 0.0 and its
-        deps' ends, and its end to start + duration. With every dep
-        pointing at an earlier op the fixpoint is unique, and each op
-        holds there the same ``max`` of the same operands plus the same
-        duration as in `_scan_order_levels`; the stable sort then gives
-        the same permutation. An op at depth d is final after d + 1
-        steps, so the steps stop within n + 1."""
-        dev = resolve_device(device)
-        n = ops.n_ops
-        if n == 0:
-            return None
-
-        def up(a: np.ndarray) -> torch.Tensor:
-            # one copy straight from the array (which a DAG cache may
-            # have made read-only) to the device
-            return torch.tensor(a, device=dev)
-
-        res, deps = up(ops.res), up(ops.deps)
-        cls8 = up(ops.cls).to(torch.int64)
-        nbytes, reqs, extra, nlat = (up(ops.nbytes), up(ops.reqs),
-                                     up(ops.extra), up(ops.nlat))
-        dead = up(ops.dead) if ops.dead is not None else None
-        # one eager op a step, in `ref_sim.durations`' order, then
-        # `scan_order`'s lag: nothing fuses a multiply into an add
-        brate, rrate = (up(t) for t in _rate_tables_np(st_ref))
-        dur = (nbytes * brate.index_select(0, cls8)
-               + reqs * rrate.index_select(0, cls8) + extra)
-        if ops.res_mult is not None:
-            dur = dur * up(ops.res_mult).index_select(0, res)
-        if dead is not None:
-            dur = dur + dead * DEAD_TIME
-        dur = dur + nlat * st_ref.net_latency
-        ahead = torch.arange(n, dtype=deps.dtype, device=dev)[:, None]
-        if not bool(torch.isfinite(dur).all() & (deps < ahead).all()):
-            return None
-        start = _relax_starts(deps, dur)
-        if start is None:
-            return None
-        # + 0.0 turns -0.0 into 0.0: the host's sort takes them as equal,
-        # and a radix sort need not
-        perm = torch.sort(start + 0.0, stable=True).indices
-        return cls(ops=ops, perm=perm, res=res, cls=cls8, nbytes=nbytes,
-                   reqs=reqs, extra=extra, nlat=nlat, deps=deps, dead=dead)
-
-    def host_perm(self) -> np.ndarray:
-        """The permutation as `scan_order` returns it (int32, host)."""
-        return self.perm.to(torch.int32).cpu().numpy()
-
     def arrays(self, pad_to: Optional[int] = None,
                n_resources: Optional[int] = None, *,
                dtype: Optional[torch.dtype] = None
                ) -> Tuple[OpArrays, Optional[FaultArrays]]:
-        """The rows `OpArrays.from_micro_ops` and (for a faulted DAG)
-        `FaultArrays.from_micro_ops` build with this permutation, the
-        same ``pad_to``, ``n_resources`` and ``dtype``, built on the
-        device: gathered, deps renumbered through the inverse
-        permutation, padded with 0 (deps -1), floats rounded to
-        ``dtype`` there."""
+        """The DAG's rows in ``perm`` order: `OpArrays`, and for a
+        faulted DAG `FaultArrays` (None for a healthy one). Gathered on
+        the device, deps renumbered through the inverse permutation,
+        padded to ``pad_to`` ops with 0 (deps -1, padded ops alive) and
+        to ``n_resources`` multipliers with 1.0, floats rounded to
+        ``dtype`` (default `x64.sim_dtype()`) there."""
         ops, perm = self.ops, self.perm
         dev = perm.device
         fdt = sim_dtype() if dtype is None else dtype
@@ -467,7 +361,7 @@ class DeviceOrder:
         # slot 0 maps "no dep" (-1 + 1) to -1; slot k + 1 op k to its place
         inv = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
         inv[perm + 1] = torch.arange(n, dtype=torch.int32, device=dev)
-        deps = inv.index_select(0, (self.deps + 1).view(-1)).view(n, -1)
+        deps = inv.index_select(0, (self.deps + 1).view(-1)).view_as(self.deps)
         arr = OpArrays(res=take(self.res, torch.int32),
                        cls=take(self.cls, torch.int64),
                        nbytes=take(self.nbytes, fdt), reqs=take(self.reqs, fdt),
@@ -481,39 +375,74 @@ class DeviceOrder:
                                 dead=dead)
 
 
-def estimated_order(ops: MicroOps, st_ref: ServiceTimes,
-                    device: DeviceLike = "cuda"
-                    ) -> Union[np.ndarray, DeviceOrder]:
-    """The estimated-start order of one DAG for rows on ``device``: a
-    `DeviceOrder` where ``device`` is a card and the DAG allows it,
-    else `scan_order`'s host permutation. The choice rests on the
-    device and the DAG alone; both give the same permutation."""
+def _card_order(d: DeviceOrder, st_ref: ServiceTimes
+                ) -> Optional[torch.Tensor]:
+    """The estimated-start permutation of ``d``'s DAG, built on its
+    device, or None where the host must build it: a dep that points at
+    a later op (`scan_order`'s loop reads 0.0 for it), or a duration
+    that is not finite (one check, one host sync).
+
+    The estimated starts are the fixpoint of a Jacobi relaxation: each
+    step sets every op's start to the ``max`` of 0.0 and its deps' ends,
+    and its end to start + duration. With every dep pointing at an
+    earlier op the fixpoint is unique, and each op holds there the same
+    ``max`` of the same operands plus the same duration as in
+    `_scan_order_levels`; the stable sort then gives the same
+    permutation. An op at depth d is final after d + 1 steps, so the
+    steps stop within n + 1. The starts are f64 whatever `x64.sim_dtype`
+    says, as the host's are."""
+    ops, dev = d.ops, d.res.device
+    # one eager op a step, in `ref_sim.durations`' order, then
+    # `scan_order`'s lag: nothing fuses a multiply into an add
+    brate, rrate = (torch.tensor(t, device=dev)
+                    for t in _rate_tables_np(st_ref))
+    dur = (d.nbytes * brate.index_select(0, d.cls)
+           + d.reqs * rrate.index_select(0, d.cls) + d.extra)
+    if ops.res_mult is not None:
+        dur = dur * torch.tensor(ops.res_mult,
+                                 device=dev).index_select(0, d.res)
+    if d.dead is not None:
+        dur = dur + d.dead * DEAD_TIME
+    dur = dur + d.nlat * st_ref.net_latency
+    ahead = torch.arange(ops.n_ops, dtype=d.deps.dtype, device=dev)[:, None]
+    if not bool(torch.isfinite(dur).all() & (d.deps < ahead).all()):
+        return None
+    start = _relax_starts(d.deps, dur)
+    if start is None:
+        return None
+    # + 0.0 turns -0.0 into 0.0: the host's sort takes them as equal,
+    # and a radix sort need not
+    return torch.sort(start + 0.0, stable=True).indices
+
+
+def estimated_order(ops: MicroOps, st_ref: Optional[ServiceTimes],
+                    device: DeviceLike = "cuda") -> DeviceOrder:
+    """One DAG on ``device`` with the order its rows take there: op
+    order where ``st_ref`` is None (exact mode); else the
+    estimated-start order against ``st_ref``, built on the device where
+    `_orders_on_card` says so and the DAG allows it (`_card_order`),
+    and by `scan_order` on the host otherwise. The one place the order's
+    source is chosen; the two give the same permutation."""
     dev = resolve_device(device)
-    if _orders_on_card(dev):
-        order = DeviceOrder.build(ops, st_ref, device=dev)
-        if order is not None:
-            return order
-    return scan_order(ops, st_ref)
 
+    def up(a: np.ndarray) -> torch.Tensor:
+        # one copy straight from the array (which a DAG cache may
+        # have made read-only) to the device
+        return torch.tensor(a, device=dev)
 
-def prepped_arrays(ops: MicroOps, order: Union[None, np.ndarray, DeviceOrder],
-                   *, pad_to: Optional[int] = None,
-                   n_resources: Optional[int] = None,
-                   device: DeviceLike = "cuda",
-                   dtype: Optional[torch.dtype] = None
-                   ) -> Tuple[OpArrays, Optional[FaultArrays]]:
-    """One DAG's rows on ``device`` in ``order`` (None: op order; a host
-    permutation; a `DeviceOrder`, whose device builds them): `OpArrays`,
-    and `FaultArrays` for a faulted DAG (None for a healthy one)."""
-    if isinstance(order, DeviceOrder):
-        return order.arrays(pad_to, n_resources, dtype=dtype)
-    arr = OpArrays.from_micro_ops(ops, pad_to=pad_to, perm=order,
-                                  device=device, dtype=dtype)
-    farr = (FaultArrays.from_micro_ops(ops, n_resources=n_resources,
-                                       pad_to=pad_to, perm=order,
-                                       device=device, dtype=dtype)
-            if faulted(ops) else None)
-    return arr, farr
+    d = DeviceOrder(ops=ops, perm=torch.arange(ops.n_ops, device=dev),
+                    on_card=False, res=up(ops.res),
+                    cls=up(ops.cls).to(torch.int64), nbytes=up(ops.nbytes),
+                    reqs=up(ops.reqs), extra=up(ops.extra), nlat=up(ops.nlat),
+                    deps=up(ops.deps),
+                    dead=up(ops.dead) if ops.dead is not None else None)
+    if st_ref is None:
+        return d
+    perm = _card_order(d, st_ref) if _orders_on_card(dev) else None
+    d.on_card = perm is not None
+    d.perm = perm if d.on_card else torch.from_numpy(
+        scan_order(ops, st_ref)).to(dev, torch.int64)
+    return d
 
 
 def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -537,16 +466,6 @@ def _durations(a: OpArrays, st_vecs: torch.Tensor,
     return dur, lag
 
 
-# Refinement passes re-sort the serving order by the previous pass's ready
-# times. The reference found that this helps pure fan-out patterns but
-# *oscillates* for chained pipelines — the iteration is not a
-# contraction. Default is therefore 1 (host estimated-start order only);
-# use exact=True when the schedule must be oracle-faithful, or the
-# sweep->verify workflow in `sweep.search` (scan-mode shortlist,
-# exact-mode confirmation).
-SCAN_REFINE_PASSES = 1
-
-
 def _scan_once(a: OpArrays, dur: torch.Tensor, lag: torch.Tensor,
                n_resources: int, use_kernel: bool = True, stats=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -560,52 +479,15 @@ def _scan_once(a: OpArrays, dur: torch.Tensor, lag: torch.Tensor,
         stats=stats)
 
 
-def _permute(a: OpArrays, order: torch.Tensor) -> Tuple[OpArrays, torch.Tensor]:
-    """Reorder every candidate's ops by ``order [C, N]``; deps are
-    renumbered through the inverse permutation, which is returned."""
-    C, n = a.res.shape
-    inv = torch.zeros((C, n), dtype=order.dtype, device=order.device)
-    inv.scatter_(1, order, torch.arange(n, dtype=order.dtype,
-                                        device=order.device).expand(C, n))
-    deps = a.deps.gather(1, order[:, :, None].expand(-1, -1, a.deps.shape[2]))
-    none = torch.full((), -1, dtype=inv.dtype, device=inv.device)
-    deps = torch.where(deps >= 0, _take(inv, deps.clamp(min=0)),
-                       none).to(a.deps.dtype)
-    return OpArrays(res=a.res.gather(1, order), cls=a.cls.gather(1, order),
-                    nbytes=a.nbytes.gather(1, order),
-                    reqs=a.reqs.gather(1, order),
-                    extra=a.extra.gather(1, order),
-                    nlat=a.nlat.gather(1, order), deps=deps), inv
-
-
 def _sim_scan(a: OpArrays, st_vecs: torch.Tensor, n_resources: int,
               f: Optional[FaultArrays] = None, *, use_kernel: bool = True,
               stats=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fast mode: serve each FIFO resource in scan order. The initial
-    order (host-side `scan_order`) approximates arrival order; refinement
-    passes re-sort by the *actual* start times of the previous pass,
-    converging to a self-consistent FIFO schedule."""
+    """Fast mode: one pass of the FIFO serving recurrence over the rows
+    in the order they were built in (`estimated_order`), which stands in
+    for arrival order. Exact mode, or the search layer's scan -> exact
+    verification, gives the faithful schedule."""
     dur, lag = _durations(a, st_vecs, f)
-    makespan, end = _scan_once(a, dur, lag, n_resources, use_kernel, stats)
-    total_inv = None
-    cur = a
-    for _ in range(SCAN_REFINE_PASSES - 1):
-        # DES serves in READY-time order: recompute each op's ready time
-        # from the previous pass's completion times and re-sort.
-        dep_end = torch.where(cur.deps >= 0, _take(end, cur.deps.clamp(min=0)),
-                              torch.zeros((), dtype=end.dtype, device=end.device))
-        ready = dep_end.max(dim=2).values
-        order = torch.sort(ready, dim=1, stable=True).indices
-        cur, inv = _permute(cur, order)
-        total_inv = inv if total_inv is None else inv.gather(1, total_inv)
-        # durations are per-op, so permuting them == recomputing from the
-        # permuted arrays (and it keeps the fault mask aligned for free)
-        dur, lag = dur.gather(1, order), lag.gather(1, order)
-        makespan, end = _scan_once(cur, dur, lag, n_resources, use_kernel,
-                                   stats)
-    if total_inv is not None:
-        end = end.gather(1, total_inv)
-    return makespan, end
+    return _scan_once(a, dur, lag, n_resources, use_kernel, stats)
 
 
 def _sim_exact(a: OpArrays, st_vecs: torch.Tensor, n_resources: int,
@@ -685,20 +567,17 @@ def simulate(ops: MicroOps, st: ServiceTimes, *, exact: bool = False,
     (`SweepEngine.simulate_one` passes its engine's)."""
     dev = resolve_device(device)
     dt = sim_dtype()
-    order = None if exact else estimated_order(ops, st, dev)
-    a, fa = prepped_arrays(ops, order, device=dev, dtype=dt)
+    order = estimated_order(ops, None if exact else st, dev)
+    a, fa = order.arrays(dtype=dt)
     makespan, end = simulate_arrays(a.batched(),
                                     st_tensor(st_to_vec(st)[None], dev, dt),
                                     n_resources=ops.n_resources, exact=exact,
                                     f=None if fa is None else fa.batched(),
                                     use_kernel=use_kernel, stats=stats)
     makespan = float(makespan[0].cpu())
-    end = end[0].cpu().numpy()
-    perm = order.host_perm() if isinstance(order, DeviceOrder) else order
-    if perm is not None:
-        inv = np.empty_like(perm)
-        inv[perm] = np.arange(perm.shape[0], dtype=perm.dtype)
-        end = end[inv]
+    # row i is op perm[i]: put each op's end back in its place
+    end = torch.empty_like(end[0]).index_copy_(0, order.perm, end[0])
+    end = end.cpu().numpy()
     per_task = {tid: float(end[op]) for tid, op in ops.task_end_op.items()}
     per_stage: Dict[str, float] = {}
     for tid, t_end in per_task.items():
@@ -736,18 +615,15 @@ def simulate_batch(ops_list: Sequence[MicroOps], st_list: Sequence[ServiceTimes]
     dt = sim_dtype()
     n_max = max(o.n_ops for o in ops_list)
     r_max = max(o.n_resources for o in ops_list)
-    rows = [prepped_arrays(o, None if exact else estimated_order(o, s, dev),
-                           pad_to=n_max, n_resources=r_max, device=dev,
-                           dtype=dt)
+    rows = [estimated_order(o, None if exact else s, dev).arrays(
+                n_max, r_max, dtype=dt)
             for o, s in zip(ops_list, st_list)]
     batch = OpArrays.stack([a for a, _ in rows])
     fbatch = None
-    if any(faulted(o) for o in ops_list):
-        # a healthy DAG's fault rows are all ones and zeros, in any order
-        fbatch = FaultArrays.stack([
-            f if f is not None else FaultArrays.from_micro_ops(
-                o, n_resources=r_max, pad_to=n_max, device=dev, dtype=dt)
-            for o, (_, f) in zip(ops_list, rows)])
+    if any(f is not None for _, f in rows):
+        neutral = FaultArrays.neutral(n_max, r_max, device=dev, dtype=dt)
+        fbatch = FaultArrays.stack([neutral if f is None else f
+                                    for _, f in rows])
     st_vecs = st_tensor(np.stack([st_to_vec(s) for s in st_list]), dev, dt)
     makespan, _ = simulate_arrays(batch, st_vecs, n_resources=r_max,
                                   exact=exact, f=fbatch)
@@ -759,23 +635,23 @@ def sweep_service_times(ops: MicroOps, st_vecs: np.ndarray, *,
                         exact: bool = False, device: DeviceLike = "cuda",
                         tracer=None, stats=None) -> np.ndarray:
     """What-if hardware sweep (§2.1): one DAG, many ServiceTimes vectors.
-    ``tracer`` records the prep (``what_if.scan_order`` with ``on_card``
-    1 where the device built the order, ``what_if.arrays``: on a card
-    both are mostly its work, see `estimated_order`) and the scan with
+    ``tracer`` records the prep (``what_if.scan_order``: the DAG's
+    copy to ``device`` and its order, ``on_card`` 1 where the device
+    built the order, see `estimated_order`; ``what_if.arrays``: the
+    rows, `DeviceOrder.arrays`) and the scan with
     its copy back (``what_if.scan``); ``stats`` counts kernel launches,
     as in `simulate_arrays`."""
     tracer = NULL_TRACER if tracer is None else tracer
     dev = resolve_device(device)
     dt = sim_dtype()
     t0 = tracer.clock()
-    order = None if exact else estimated_order(ops, st_ref or PAPER_RAMDISK,
-                                               dev)
+    order = estimated_order(ops, None if exact else (st_ref or PAPER_RAMDISK),
+                            dev)
     tracer.record("what_if.scan_order", t0, tracer.clock(),
-                  phase="host-prep",
-                  on_card=int(isinstance(order, DeviceOrder)))
+                  phase="host-prep", on_card=int(order.on_card))
     c = st_vecs.shape[0]
     with tracer.span("what_if.arrays", phase="host-prep"):
-        arr, farr = prepped_arrays(ops, order, device=dev, dtype=dt)
+        arr, farr = order.arrays(dtype=dt)
         batch = arr.expand(c)
         fbatch = None if farr is None else farr.expand(c)
         sv = st_tensor(st_vecs, dev, dt)

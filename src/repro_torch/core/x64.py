@@ -10,8 +10,9 @@ golden fixture tolerance (`tests/test_torch_x64.py`).
 PyTorch names every dtype explicitly, so there is no context manager:
 the simulator's constructors take the dtype `sim_dtype` returns, read at
 the point where the reference rounds its f64 NumPy arrays to the device
-(`torch_sim.OpArrays.from_micro_ops` and its siblings), and the sweep
-engine reads it once per batch call, so a batch never mixes the two.
+(`torch_sim.DeviceOrder.arrays`, `FaultArrays.neutral`, `st_tensor`),
+and the sweep engine reads it once per batch call, so a batch never
+mixes the two.
 """
 from __future__ import annotations
 

@@ -192,15 +192,23 @@ CORPUS = {
 PROFILES = ("PAPER_RAMDISK", "PAPER_HDD")
 
 
+def card_order(ops, st_ref):
+    """`torch_sim.estimated_order` with the card's path run on CPU
+    tensors (`_orders_on_card` patched)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch_sim, "_orders_on_card", lambda dev: True)
+        return torch_sim.estimated_order(ops, st_ref, "cpu")
+
+
 def assert_device_order_is_host_order(jo, to):
-    """`torch_sim.DeviceOrder`, run on CPU tensors, orders the DAG as
-    the reference's `scan_order` and the port's host one do, under
-    both paper profiles."""
+    """The card's order, run on CPU tensors, orders the DAG as the
+    reference's `scan_order` and the port's host one do, under both
+    paper profiles."""
     for p in PROFILES:
-        order = torch_sim.DeviceOrder.build(to, getattr(T, p), device="cpu")
-        assert order is not None, p
-        got, want = order.host_perm(), jax_sim.scan_order(jo, getattr(J, p))
-        assert got.dtype == want.dtype
+        order = card_order(to, getattr(T, p))
+        assert order.on_card, p
+        assert order.perm.dtype == torch.int64
+        got, want = order.perm.numpy(), jax_sim.scan_order(jo, getattr(J, p))
         np.testing.assert_array_equal(got, want, err_msg=p)
         np.testing.assert_array_equal(
             got, torch_sim.scan_order(to, getattr(T, p)), err_msg=p)
@@ -262,39 +270,84 @@ def test_device_order_on_faulted_blast(n_app):
             assert_device_order_is_host_order(reference_ops(ops), ops)
 
 
-def device_array_case(name):
-    _, twf = workflow_pair(name)
-    _, tcfg = config_pair("faulted" if name == "pipeline" else "healthy", 2)
-    return T.compile_workflow(twf, tcfg)
+def row_case(name):
+    """(reference MicroOps, port MicroOps): BLAST healthy, or the
+    pipeline under `FAULT_SPEC`, at replication 2."""
+    jwf, twf = workflow_pair(name)
+    jcfg, tcfg = config_pair("faulted" if name == "pipeline" else "healthy",
+                             2)
+    return J.compile_workflow(jwf, jcfg), T.compile_workflow(twf, tcfg)
 
 
+def order_from(source, ops, st):
+    """The port's `DeviceOrder` of ``ops`` on CPU tensors, its order
+    from ``source``: op order (exact mode), the host's `scan_order`, or
+    the card's relaxation."""
+    if source == "exact":
+        order = torch_sim.estimated_order(ops, None, "cpu")
+    elif source == "host":
+        order = torch_sim.estimated_order(ops, st, "cpu")
+    else:
+        order = card_order(ops, st)
+    assert order.on_card == (source == "card")
+    return order
+
+
+def assert_rows_equal_reference(order, jo, perm, pad, r_pad):
+    """Every field of ``order.arrays(pad, r_pad)`` holds the values of
+    the reference's `OpArrays` and `FaultArrays` for ``perm``, in the
+    reference's dtype (``cls`` is i64 here: an index tensor)."""
+    arr, farr = order.arrays(pad, r_pad)
+    want = jax_sim.OpArrays.from_micro_ops(jo, pad, perm=perm)
+    for f in torch_sim.OpArrays._NAMES:
+        a, b = getattr(arr, f).numpy(), np.asarray(getattr(want, f))
+        assert a.dtype == (np.int64 if f == "cls" else b.dtype), f
+        assert a.shape == b.shape and np.array_equal(a, b), f
+    assert (farr is None) == (not jax_sim.faulted(jo))
+    if farr is not None:
+        fwant = jax_sim.FaultArrays.from_micro_ops(jo, r_pad, pad, perm=perm)
+        for f in torch_sim.FaultArrays._NAMES:
+            a, b = getattr(farr, f).numpy(), np.asarray(getattr(fwant, f))
+            assert a.dtype == b.dtype and np.array_equal(a, b), f
+
+
+@pytest.mark.parametrize("source", ["exact", "host", "card"])
 @pytest.mark.parametrize("x64", [True, False])
 @pytest.mark.parametrize("name", ["blast", "pipeline"])
-def test_device_arrays_equal_host_arrays(name, x64, monkeypatch):
-    """The rows `DeviceOrder.arrays` permutes, renumbers, pads and rounds
-    on the device are the host's, `torch.equal`, in f64 and in f32
-    (``REPRO_SIM_X64=0``), at two pad sizes; the order stays f64."""
+def test_rows_equal_reference_rows(name, x64, source, monkeypatch):
+    """`DeviceOrder.arrays`, the one row builder, permutes, renumbers,
+    pads and rounds a DAG's rows as the reference's
+    `OpArrays.from_micro_ops` / `FaultArrays.from_micro_ops` do under
+    the same permutation, whichever source ordered them, in f64 and in
+    f32 (``REPRO_SIM_X64=0``), unpadded and padded; the order is the
+    reference's `scan_order` (op order in exact mode)."""
     monkeypatch.setenv("REPRO_SIM_X64", "1" if x64 else "0")
-    ops = device_array_case(name)
-    st = T.PAPER_HDD
-    order = torch_sim.DeviceOrder.build(ops, st, device="cpu")
-    perm = torch_sim.scan_order(ops, st)
-    np.testing.assert_array_equal(order.host_perm(), perm)
-    for pad, r_pad in ((None, None), (1 << ops.n_ops.bit_length(),
-                                      ops.n_resources + 5)):
-        arr, farr = order.arrays(pad, r_pad)
-        want = torch_sim.OpArrays.from_micro_ops(ops, pad, perm=perm, device="cpu")
-        assert arr.nbytes.dtype == (torch.float64 if x64 else torch.float32)
-        for f in torch_sim.OpArrays._NAMES:
-            a, b = getattr(arr, f), getattr(want, f)
-            assert a.dtype == b.dtype and torch.equal(a, b), f
-        assert (farr is None) == (name != "pipeline")
-        if farr is not None:
-            fwant = torch_sim.FaultArrays.from_micro_ops(ops, r_pad, pad, perm=perm,
-                                                 device="cpu")
-            for f in torch_sim.FaultArrays._NAMES:
-                a, b = getattr(farr, f), getattr(fwant, f)
-                assert a.dtype == b.dtype and torch.equal(a, b), f
+    jo, to = row_case(name)
+    order = order_from(source, to, T.PAPER_HDD)
+    perm = None if source == "exact" else jax_sim.scan_order(jo, J.PAPER_HDD)
+    np.testing.assert_array_equal(
+        order.perm.numpy(), np.arange(to.n_ops) if perm is None else perm)
+    arr, _ = order.arrays()
+    assert arr.nbytes.dtype == (torch.float64 if x64 else torch.float32)
+    for pad, r_pad in ((None, None), (1 << to.n_ops.bit_length(),
+                                      to.n_resources + 5)):
+        assert_rows_equal_reference(order, jo, perm, pad, r_pad)
+
+
+def test_empty_dag_rows_equal_reference_rows():
+    """A DAG with no ops gets an empty order from every source, and
+    rows (all padding when padded) equal to the reference's."""
+    _, to = row_case("pipeline")
+    to = dataclasses.replace(to, dead=np.zeros(0), **{
+        f: getattr(to, f)[:0] for f in ("res", "cls", "nbytes", "reqs",
+                                        "extra", "nlat", "deps")})
+    assert torch_sim.faulted(to)
+    jo = reference_ops(to)
+    for source in ("exact", "host", "card"):
+        order = order_from(source, to, T.PAPER_HDD)
+        assert order.perm.shape == (0,)
+        for pad, r_pad in ((None, None), (8, to.n_resources + 1)):
+            assert_rows_equal_reference(order, jo, None, pad, r_pad)
 
 
 def small_blast(forward_dep=False):
@@ -317,11 +370,11 @@ def test_engine_orders_on_the_device_unless_the_dag_forbids(case,
     ops = small_blast(forward_dep=case == "forward_dep")
     st = (T.PAPER_RAMDISK.replace(storage=float("inf"))
           if case == "non_finite" else T.PAPER_RAMDISK)
-    on_card = torch_sim.DeviceOrder.build(ops, st, device="cpu") is not None
-    assert on_card == (case == "plain")
     host = T.SweepEngine(device="cpu")
     want = host.simulate_batch([ops], [st])
     monkeypatch.setattr(torch_sim, "_orders_on_card", lambda dev: True)
+    on_card = torch_sim.estimated_order(ops, st, "cpu").on_card
+    assert on_card == (case == "plain")
     eng = T.SweepEngine(device="cpu")
     got = eng.simulate_batch([ops], [st])
     np.testing.assert_array_equal(got, want)

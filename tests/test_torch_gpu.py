@@ -263,7 +263,7 @@ def _rows_by_key(engine):
 @pytest.mark.gpu
 def test_rows_ordered_on_the_card_equal_the_host_rows(monkeypatch):
     """A CUDA engine orders every cold scan-mode row on the card
-    (`torch_sim.DeviceOrder`), healthy and faulted, in f64 and f32: each
+    (`torch_sim.estimated_order`), healthy and faulted, in f64 and f32: each
     row is `torch.equal` to the row the host path builds (the same
     engine with the order left to `scan_order`), and the makespans are
     a CPU engine's."""
@@ -318,7 +318,7 @@ def _largest_dags():
 
 
 @pytest.mark.gpu
-def test_relaxation_on_the_largest_dags_reaches_the_host_starts():
+def test_relaxation_on_the_largest_dags_reaches_the_host_starts(monkeypatch):
     need_card()
     st = T.PAPER_RAMDISK
     for n_ops, ops in _largest_dags():
@@ -328,8 +328,13 @@ def test_relaxation_on_the_largest_dags_reaches_the_host_starts():
                                       torch.tensor(dur, device="cuda"))
         np.testing.assert_array_equal(got.cpu().numpy(),
                                       torch_sim._scan_order_levels(ops, dur))
-        order = torch_sim.DeviceOrder.build(ops, st, device="cuda")
-        np.testing.assert_array_equal(order.host_perm(),
+        card = torch_sim.estimated_order(ops, st, "cuda")
+        with monkeypatch.context() as mp:
+            mp.setattr(torch_sim, "_orders_on_card", lambda dev: False)
+            host = torch_sim.estimated_order(ops, st, "cuda")
+        assert card.on_card and not host.on_card
+        assert torch.equal(card.perm, host.perm)
+        np.testing.assert_array_equal(card.perm.cpu().numpy(),
                                       torch_sim.scan_order(ops, st))
 
 

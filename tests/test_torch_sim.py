@@ -71,14 +71,13 @@ def jax_scan_end(jo, st):
 
 
 def torch_scan_end(to, st):
-    perm = torch_sim.scan_order(to, st)
-    a = torch_sim.OpArrays.from_micro_ops(to, perm=perm, device="cpu").batched()
-    fa = (torch_sim.FaultArrays.from_micro_ops(to, perm=perm,
-                                               device="cpu").batched()
-          if torch_sim.faulted(to) else None)
+    order = torch_sim.estimated_order(to, st, "cpu")
+    perm = order.perm.numpy()
+    a, fa = order.arrays()
     mk, end = torch_sim.simulate_arrays(
-        a, torch.from_numpy(torch_sim.st_to_vec(st)[None]),
-        n_resources=to.n_resources, exact=False, f=fa)
+        a.batched(), torch.from_numpy(torch_sim.st_to_vec(st)[None]),
+        n_resources=to.n_resources, exact=False,
+        f=None if fa is None else fa.batched())
     inv = np.empty_like(perm)
     inv[perm] = np.arange(perm.shape[0], dtype=perm.dtype)
     return float(mk[0]), end[0].numpy()[inv]
@@ -192,42 +191,9 @@ def test_sweep_service_times_and_what_if_equal():
     np.testing.assert_array_equal(wj, wt)
 
 
-def test_refine_pass_equal_to_reference(monkeypatch):
-    """`SCAN_REFINE_PASSES` means the same in both packages: with a
-    second pass switched on, the un-jitted reference body and the port
-    still agree element-wise (stable re-sort, renumbered deps)."""
-    monkeypatch.setattr(jax_sim, "SCAN_REFINE_PASSES", 2)
-    monkeypatch.setattr(torch_sim, "SCAN_REFINE_PASSES", 2)
-    jo, to = compiled_pair("map_reduce_shuffle", FAULT_SPEC, 2)
-    perm = jax_sim.scan_order(jo, J.PAPER_RAMDISK)
-    with enable_x64():
-        a = jax_sim.OpArrays.from_micro_ops(jo, perm=perm)
-        fa = jax_sim.FaultArrays.from_micro_ops(jo, perm=perm)
-        mk_j, end_j = jax_sim._sim_scan(
-            a, jnp.asarray(jax_sim.st_to_vec(J.PAPER_RAMDISK)),
-            jo.n_resources, fa)
-        mk_j, end_j = float(mk_j), np.asarray(end_j)
-    ta = torch_sim.OpArrays.from_micro_ops(to, perm=perm, device="cpu").batched()
-    tf = torch_sim.FaultArrays.from_micro_ops(to, perm=perm,
-                                              device="cpu").batched()
-    mk_t, end_t = torch_sim._sim_scan(
-        ta, torch.from_numpy(torch_sim.st_to_vec(T.PAPER_RAMDISK)[None]),
-        to.n_resources, tf)
-    assert mk_j == float(mk_t[0])
-    np.testing.assert_array_equal(end_j, end_t[0].numpy())
-    # the second pass really changed something
-    monkeypatch.setattr(torch_sim, "SCAN_REFINE_PASSES", 1)
-    _, end_1 = torch_sim._sim_scan(
-        ta, torch.from_numpy(torch_sim.st_to_vec(T.PAPER_RAMDISK)[None]),
-        to.n_resources, tf)
-    assert not np.array_equal(end_1[0].numpy(), end_t[0].numpy())
-
-
 def test_every_sweep_path_tensor_is_f64_or_index():
     _, to = compiled_pair("blast", FAULT_SPEC, 2)
-    a = torch_sim.OpArrays.from_micro_ops(to, pad_to=4096, device="cpu")
-    f = torch_sim.FaultArrays.from_micro_ops(to, pad_to=4096, n_resources=64,
-                                             device="cpu")
+    a, f = torch_sim.estimated_order(to, None, "cpu").arrays(4096, 64)
     n = torch_sim.FaultArrays.neutral(4096, 64, device="cpu")
     assert a.res.dtype == a.deps.dtype == torch.int32
     assert a.cls.dtype == torch.int64

@@ -99,8 +99,7 @@ def test_arrays_are_rounded_where_they_become_tensors(f32):
 
     ops = T.compile_workflow(twf, cfg(T))
     assert torch_sim.faulted(ops)
-    a = torch_sim.OpArrays.from_micro_ops(ops, device="cpu")
-    fa = torch_sim.FaultArrays.from_micro_ops(ops, device="cpu")
+    a, fa = torch_sim.estimated_order(ops, None, "cpu").arrays()
     ja = j_sim.OpArrays.from_micro_ops(J.compile_workflow(jwf, cfg(J)))
     for name in ("nbytes", "reqs", "extra", "nlat"):
         t = getattr(a, name)
