@@ -17,11 +17,11 @@ from .faults import (DEAD_TIME, FAILED_THRESHOLD, DiskDegradation,
 from .placement import FileLoc, Manager
 from .predictor import Predictor
 from .sweep import (Candidate, CompileCache, Evaluation, ExecutionBackend,
-                    InlineBackend, MultiprocBackend, MultiprocSweep,
+                    InlineBackend, MultiprocBackend, MultiprocSweep, Question,
                     ShardedBackend, SweepEngine, SweepSession,
                     SysIdServiceTimes, default_compile_cache, default_engine,
-                    default_session, explore, explore_many, grid, pareto_front,
-                    successive_halving, with_faults)
+                    default_session, explore, explore_batch, explore_many,
+                    grid, pareto_front, successive_halving, with_faults)
 from .sysid import SysIdReport, identify
 from . import trace
 from .types import (GB, KB, MB, PAPER_HDD, PAPER_RAMDISK, TPU_POD_STAGING,
@@ -35,10 +35,11 @@ __all__ = [
     "NodeFailure", "Straggler", "from_pod_health", "parse_faults",
     "seeded_scenario", "with_faults",
     "Candidate", "CompileCache", "Evaluation", "ExecutionBackend",
-    "InlineBackend", "MultiprocBackend", "MultiprocSweep", "ShardedBackend",
+    "InlineBackend", "MultiprocBackend", "MultiprocSweep", "Question",
+    "ShardedBackend",
     "SweepEngine", "SweepSession", "SysIdServiceTimes",
     "default_compile_cache", "default_engine", "default_session",
-    "explore", "explore_many", "grid", "pareto_front",
+    "explore", "explore_batch", "explore_many", "grid", "pareto_front",
     "successive_halving", "SysIdReport", "identify", "trace",
     "GB", "KB", "MB", "PAPER_HDD", "PAPER_RAMDISK", "TPU_POD_STAGING",
     "FileAttr", "Placement", "RunReport", "ServiceTimes", "StorageConfig",

@@ -14,7 +14,8 @@ two cache levels (docs/sweep.md, docs/architecture.md §5):
     session      — `SweepSession`: engine + compile cache + mesh + pools
                    + sysid behind one lifecycle (`close()`); the single
                    sanctioned process-wide slot is `default_session()`
-    search       — Candidate grids, explore/pareto/successive-halving
+    search       — Candidate grids, explore (one question or a batch of
+                   them in one sweep)/pareto/successive-halving
 """
 from .backends import ExecutionBackend, InlineBackend, ShardedBackend, SweepRun
 from .buckets import bucket_of, bucket_pow2, group_by_bucket
@@ -23,8 +24,9 @@ from .compilecache import (CompileCache, CompileCacheStats, compile_key,
 from .engine import SIM_ENGINES, CacheStats, SweepEngine
 from .multiproc import (MultiprocBackend, MultiprocSweep, PoolHandle,
                         SysIdServiceTimes, partition_weighted, shutdown_pools)
-from .search import (Candidate, Evaluation, explore, explore_many, grid,
-                     pareto_front, successive_halving, with_faults)
+from .search import (Candidate, Evaluation, Question, explore, explore_batch,
+                     explore_many, grid, pareto_front, successive_halving,
+                     with_faults)
 from .session import (SweepSession, default_compile_cache, default_engine,
                       default_session)
 from .shard import resolve_mesh, shard_count
@@ -36,7 +38,8 @@ __all__ = [
     "SIM_ENGINES", "CacheStats", "SweepEngine",
     "MultiprocBackend", "MultiprocSweep", "PoolHandle",
     "SysIdServiceTimes", "partition_weighted", "shutdown_pools",
-    "Candidate", "Evaluation", "explore", "explore_many", "grid",
+    "Candidate", "Evaluation", "Question", "explore", "explore_batch",
+    "explore_many", "grid",
     "pareto_front", "successive_halving", "with_faults",
     "SweepSession", "default_session", "default_engine",
     "default_compile_cache",

@@ -233,6 +233,50 @@ def _resolve_session(session: Optional[SweepSession], *,
                                     devices=devices, workers=workers)
 
 
+@dataclass(frozen=True)
+class Question:
+    """One `explore` question as `explore_batch` takes it: the
+    candidates, the workflow each candidate runs, and the two knobs that
+    shape its answer besides the sweep's own."""
+
+    workflow_for: Callable[[Candidate], Workflow]
+    candidates: Sequence[Candidate]
+    verify_top_k: int = 5
+    objective: str = "makespan"
+
+
+def _sweep_questions(sess: SweepSession, questions: Sequence[Question],
+                     st: ServiceTimes, *, locality_aware: bool,
+                     compile_workers: Optional[int] = None):
+    """The one sweep behind `explore`, `explore_batch` and
+    `explore_many`: every question's (workflow, config) pairs,
+    concatenated, go through ONE `prepare` and ONE scan-mode
+    `simulate` (rows of one shape bucket share a launch, whichever
+    question they came from); each question's evaluations are sorted by
+    its own objective, and every question's shortlist is verified in ONE
+    exact-mode batch. An evaluation's ``index`` is its position in the
+    concatenated list. Returns the answers, one list a question, and the
+    run's workflows and configs."""
+    cands = [c for q in questions for c in q.candidates]
+    wfs = [q.workflow_for(c) for q in questions for c in q.candidates]
+    cfgs = [c.to_config() for c in cands]
+    run = sess.prepare(wfs, cfgs, st=st, locality_aware=locality_aware,
+                       compile_workers=compile_workers)
+    evals = _build_evals(cands, run.simulate())
+    answers, at = [], 0
+    for q in questions:
+        answers.append(evals[at:at + len(q.candidates)])
+        at += len(q.candidates)
+    keys = [_objective_key(q.objective) for q in questions]
+    for a, key in zip(answers, keys):
+        a.sort(key=key)
+    _verify(run, [e for a, q in zip(answers, questions)
+                  for e in a[:q.verify_top_k]])
+    for a, key in zip(answers, keys):
+        a.sort(key=key)
+    return answers, wfs, cfgs
+
+
 def explore(workflow_for: Callable[[Candidate], Workflow],
             candidates: Sequence[Candidate], st: ServiceTimes, *,
             locality_aware: bool = True, verify_top_k: int = 5,
@@ -274,31 +318,38 @@ def explore(workflow_for: Callable[[Candidate], Workflow],
     sess = _resolve_session(session, engine=engine,
                             compile_cache=compile_cache,
                             devices=devices, workers=workers)
-    key = _objective_key(objective)
-    wfs = [workflow_for(c) for c in candidates]
-    cfgs = [c.to_config() for c in candidates]
-    run = sess.prepare(wfs, cfgs, st=st, locality_aware=locality_aware,
-                       compile_workers=compile_workers)
-    evals = _build_evals(candidates, run.simulate())
-    evals.sort(key=key)
-    _verify(run, evals[:verify_top_k])
-    evals.sort(key=key)
+    (evals,), wfs, cfgs = _sweep_questions(
+        sess, [Question(workflow_for, candidates, verify_top_k, objective)],
+        st, locality_aware=locality_aware, compile_workers=compile_workers)
     _attach_timelines(sess, evals, wfs, cfgs, st,
                       locality_aware=locality_aware, top_k=timeline_top_k)
     return evals
 
 
-@dataclass(frozen=True)
-class _Pair:
-    """One (workflow, candidate) point of a multi-workflow sweep. Quacks
-    like a `Candidate` for `CompileCache.compile_grid` (``to_config``),
-    so the product grid rides the same structural-dedup path."""
+def explore_batch(questions: Sequence[Question], st: ServiceTimes, *,
+                  locality_aware: bool, session: SweepSession
+                  ) -> List[List[Evaluation]]:
+    """Answer several `explore` questions in one sweep: one `prepare`,
+    one scan-mode `simulate` and one exact-mode verification batch for
+    all of them, so the rows of different questions that fall in one
+    shape bucket run in one launch.
 
-    wf_index: int
-    candidate: Candidate
-
-    def to_config(self):
-        return self.candidate.to_config()
+    Returns one evaluation list a question, each equal, field by field,
+    to what ``explore(q.workflow_for, q.candidates, st,
+    verify_top_k=q.verify_top_k, objective=q.objective,
+    locality_aware=locality_aware, session=session)`` returns for that
+    question alone: a row's makespan depends on its DAG and service
+    times only, never on its batch-mates, and `Evaluation.index` is the
+    position in the question's own candidate list. ``locality_aware``
+    changes the compile, so it is one for the whole batch."""
+    answers, _, _ = _sweep_questions(session, questions, st,
+                                     locality_aware=locality_aware)
+    at = 0
+    for q, a in zip(questions, answers):
+        for e in a:
+            e.index -= at
+        at += len(q.candidates)
+    return answers
 
 
 def explore_many(workflows: Sequence, candidates: Sequence[Candidate],
@@ -337,32 +388,13 @@ def explore_many(workflows: Sequence, candidates: Sequence[Candidate],
     sess = _resolve_session(session, engine=engine,
                             compile_cache=compile_cache,
                             devices=devices, workers=workers)
-    key = _objective_key(objective)
-
-    def wf_for(p: _Pair) -> Workflow:
-        w = workflows[p.wf_index]
-        return w(p.candidate) if callable(w) else w
-
-    pairs = [_Pair(i, c) for i in range(len(workflows)) for c in candidates]
-
-    def build_groups(makespans) -> List[List[Evaluation]]:
-        groups: List[List[Evaluation]] = [[] for _ in workflows]
-        evals = _build_evals([p.candidate for p in pairs], makespans)
-        for p, e in zip(pairs, evals):
-            groups[p.wf_index].append(e)
-        return groups
-
-    run = sess.prepare([wf_for(p) for p in pairs],
-                       [p.to_config() for p in pairs], st=st,
-                       locality_aware=locality_aware,
-                       compile_workers=compile_workers)
-    groups = build_groups(run.simulate())
-    for g in groups:
-        g.sort(key=key)
-    _verify(run, [e for g in groups for e in g[:verify_top_k]])
-    for g in groups:
-        g.sort(key=key)
-    return groups
+    questions = [Question(w if callable(w) else (lambda c, w=w: w),
+                          candidates, verify_top_k, objective)
+                 for w in workflows]
+    answers, _, _ = _sweep_questions(sess, questions, st,
+                                     locality_aware=locality_aware,
+                                     compile_workers=compile_workers)
+    return answers
 
 
 def pareto_front(evals: Iterable[Evaluation]) -> List[Evaluation]:

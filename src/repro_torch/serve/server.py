@@ -16,11 +16,16 @@ serves every client from it:
                   cleanly (`DeadlineExceeded`), and coalesces
                   structurally-equal questions (`group_tickets`)
     answer      — per distinct question: the results cache first
-                  (zero compiles, zero simulator calls on a hit), else
-                  ONE `explore` on the server session — run in a worker
+                  (zero compiles, zero simulator calls on a hit); the
+                  batch's other distinct questions are swept together,
+                  ONE engine call (`explore_batch`) for all that share a
+                  ``locality_aware``, so rows of one shape bucket run in
+                  one launch whichever tenant asked them — in a worker
                   thread under `SweepSession.lock` so sweeps serialize
-                  against any other session user — whose answer fans
-                  out to every coalesced sibling
+                  against any other session user. Each answer fans out
+                  to every coalesced sibling. If the shared call raises,
+                  its questions are swept one at a time, so a bad
+                  question fails only its own tickets
 
 Bit-identity contract: every response is element-wise identical to a
 direct per-request `explore()` on a fresh session (tests/test_torch_serve.py
@@ -34,9 +39,11 @@ plain PyTorch path); a borrowed ``session=`` keeps its own device.
 Tracing: the session's tracer records, for each admitted request (its
 id is the admission count), ``serve.request`` from submit to answer,
 ``serve.wait`` from submit until the sweep thread holds the session lock
-(or the results cache answers), and ``serve.sweep`` around the group's
-`explore`, whose spans all carry the first ticket's id
-(docs/observability.md).
+(or the results cache answers), and ``serve.sweep`` around each engine
+call, whose spans all carry its first ticket's id (docs/observability.md).
+``serve.sweep``'s meta: ``questions``, the distinct questions swept in
+that call (``ServeStats.sweeps / engine_sweeps`` is their mean), and
+``candidates`` and ``group`` (the tickets answered), summed over them.
 
 `set_service_times` swaps the model seed (a re-identified system) in
 one step: the service digest changes, so every cached answer computed
@@ -48,11 +55,12 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 from dataclasses import dataclass
-from typing import List, Optional, Union
+from collections import OrderedDict
+from typing import Dict, List, Optional, Union
 
 from ..env import DeviceLike
 from ..core.predictor import Predictor
-from ..core.sweep.search import Evaluation, explore
+from ..core.sweep.search import Evaluation, Question, explore_batch
 from ..core.sweep.session import SweepSession
 from ..core.sysid import SysIdReport
 from ..core.types import ServiceTimes
@@ -75,11 +83,16 @@ class ServeStats:
     requests: int = 0             # tickets admitted
     responses: int = 0            # futures resolved with an answer
     batches: int = 0              # dispatcher batches drained
-    sweeps: int = 0               # explore() executions (not cache hits)
+    sweeps: int = 0               # distinct questions swept (not cache hits)
+    engine_sweeps: int = 0        # engine calls that swept them: several
+                                  # questions of one batch share one
+                                  # (sweeps / engine_sweeps: the mean
+                                  # questions a call)
     coalesced: int = 0            # requests served by a sibling's sweep
                                   # (group members beyond the first)
     deadline_expired: int = 0     # tickets failed with DeadlineExceeded
-    errors: int = 0               # sweeps that raised (failed the group)
+    errors: int = 0               # questions whose sweep raised (failed
+                                  # their group)
     sysid_swaps: int = 0          # set_service_times calls
 
     def reset(self) -> None:
@@ -136,6 +149,9 @@ class AdvisorServer:
         self.stats = ServeStats()
         self._queue: Optional["asyncio.Queue[Ticket]"] = None
         self._dispatcher: Optional["asyncio.Task"] = None
+        # id(request) -> its slice of the engine call in flight (set and
+        # read under the session lock, by the sweep thread)
+        self._swept: Dict[int, List[Evaluation]] = {}
         self.closed = False
 
     @classmethod
@@ -250,60 +266,105 @@ class AdvisorServer:
             else:
                 live.append(t)
         tracer = self.session.tracer
+        digest = self._digest
+        # the questions the results cache cannot answer, by whether they
+        # compile locality-aware: those that agree share one engine call
+        calls: "OrderedDict[bool, list]" = OrderedDict()
         for key, tickets in group_tickets(live).items():
-            digest = self._digest
             evals = self.results.get(key, digest)
-            cached = evals is not None
-            if cached:
-                t_hit = tracer.clock()
-                for t in tickets:
-                    tracer.record("serve.wait", t.submit, t_hit,
-                                  phase="serve", req=t.rid)
-            else:
-                try:
-                    # one sweep per distinct question, off the event
-                    # loop; the session lock serializes it against any
-                    # other thread driving the same session
-                    self.stats.sweeps += 1
-                    evals = await asyncio.to_thread(self._sweep_group,
-                                                    tickets)
-                except Exception as exc:          # fail the group cleanly
+            if evals is None:
+                calls.setdefault(tickets[0].request.locality_aware,
+                                 []).append((key, tickets))
+                continue
+            t_hit = tracer.clock()
+            for t in tickets:
+                tracer.record("serve.wait", t.submit, t_hit,
+                              phase="serve", req=t.rid)
+            self._answer(tickets, evals, cached=True)
+        for groups in calls.values():
+            # off the event loop; the session lock serializes it against
+            # any other thread driving the same session
+            self.stats.sweeps += len(groups)
+            outs = await asyncio.to_thread(self._sweep_groups,
+                                           [tickets for _, tickets in groups])
+            for (key, tickets), out in zip(groups, outs):
+                if isinstance(out, Exception):    # fail the group cleanly
                     self.stats.errors += 1
                     for t in tickets:
                         if not t.future.done():
-                            t.future.set_exception(exc)
+                            t.future.set_exception(out)
                     continue
-                self.results.put(key, digest, evals)
-            self.stats.coalesced += len(tickets) - 1
-            for t in tickets:
-                self.stats.responses += 1
-                if not t.future.done():
-                    t.future.set_result(AdvisorResponse(
-                        evaluations=evals, cached=cached,
-                        group_size=len(tickets), latency_s=t.waited()))
+                self.results.put(key, digest, out)
+                self._answer(tickets, out, cached=False)
 
-    def _sweep_group(self, tickets: List[Ticket]) -> List[Evaluation]:
-        """The group's one sweep, in a worker thread: every ticket's wait
-        ends once this thread holds the session lock, and the sweep's
-        spans carry the first ticket's request id."""
+    def _answer(self, tickets: List[Ticket], evals: List[Evaluation], *,
+                cached: bool) -> None:
+        self.stats.coalesced += len(tickets) - 1
+        for t in tickets:
+            self.stats.responses += 1
+            if not t.future.done():
+                t.future.set_result(AdvisorResponse(
+                    evaluations=evals, cached=cached,
+                    group_size=len(tickets), latency_s=t.waited()))
+
+    def _sweep_groups(self, groups: List[List[Ticket]]
+                      ) -> List[Union[List[Evaluation], Exception]]:
+        """Every group's answer, or what its sweep raised, in a worker
+        thread: every ticket's wait ends once this thread holds the
+        session lock. The groups' questions share one engine call; if
+        it raises, each is swept alone, so the error lands only on the
+        question that raised it."""
         tracer = self.session.tracer
-        req = tickets[0].request
         with self.session.lock:
             t_lock = tracer.clock()
-            for t in tickets:
-                tracer.record("serve.wait", t.submit, t_lock, phase="serve",
-                              req=t.rid)
-            with tracer.request(tickets[0].rid), \
-                    tracer.span("serve.sweep", phase="serve",
-                                candidates=len(req.candidates),
-                                group=len(tickets)):
-                return self._run_sweep(req)
+            for tickets in groups:
+                for t in tickets:
+                    tracer.record("serve.wait", t.submit, t_lock,
+                                  phase="serve", req=t.rid)
+            try:
+                return self._engine_sweep(groups)
+            except Exception as exc:
+                if len(groups) == 1:
+                    return [exc]
+            outs: List[Union[List[Evaluation], Exception]] = []
+            for tickets in groups:
+                try:
+                    outs += self._engine_sweep([tickets])
+                except Exception as exc:
+                    outs.append(exc)
+            return outs
+
+    def _engine_sweep(self, groups: List[List[Ticket]]
+                      ) -> List[List[Evaluation]]:
+        """One engine call for the groups' questions (the caller holds
+        the session lock), then each answer through `_run_sweep`.
+        The call's spans carry the first ticket's request id."""
+        self.stats.engine_sweeps += 1
+        tracer = self.session.tracer
+        reqs = [tickets[0].request for tickets in groups]
+        with tracer.request(groups[0][0].rid), \
+                tracer.span("serve.sweep", phase="serve",
+                            questions=len(reqs),
+                            candidates=sum(len(r.candidates) for r in reqs),
+                            group=sum(len(tickets) for tickets in groups)):
+            try:
+                self._swept = dict(zip(map(id, reqs), self._explore(reqs)))
+                return [self._run_sweep(r) for r in reqs]
+            finally:
+                self._swept = {}
+
+    def _explore(self, reqs: List[AdvisorRequest]) -> List[List[Evaluation]]:
+        """One `explore_batch` of ``reqs``, which agree on
+        ``locality_aware``; the caller holds the session lock."""
+        return explore_batch(
+            [Question(lambda c, wf=r.workflow: wf, r.candidates,
+                      r.verify_top_k, r.objective) for r in reqs],
+            self._st, locality_aware=reqs[0].locality_aware,
+            session=self.session)
 
     def _run_sweep(self, req: AdvisorRequest) -> List[Evaluation]:
-        """One `explore` for ``req``; the caller holds the session lock."""
-        wf = req.workflow
-        return explore(lambda c: wf, list(req.candidates), self._st,
-                       verify_top_k=req.verify_top_k,
-                       objective=req.objective,
-                       locality_aware=req.locality_aware,
-                       session=self.session)
+        """``req``'s slice of the engine call just made for its batch; a
+        request that call did not sweep is swept alone. The caller holds
+        the session lock."""
+        evals = self._swept.pop(id(req), None)
+        return evals if evals is not None else self._explore([req])[0]

@@ -26,6 +26,7 @@ import torch
 import repro_torch.core as T
 from repro_torch.core import interop, ref_sim, torch_sim
 from repro_torch.core import workloads as TW
+from repro_torch.core.sweep.buckets import bucket_of
 from repro_torch.core.sweep.engine import CacheStats
 from repro_torch import configs as TC
 from repro_torch.kernels.counts import KernelCounts
@@ -94,6 +95,48 @@ def test_sweep_on_the_card_equals_sweep_on_the_cpu():
     assert [e.index for e in eg] == [e.index for e in ec]
     assert [e.scan_makespan for e in eg] == [e.scan_makespan for e in ec]
     assert [e.makespan for e in eg] == [e.makespan for e in ec]
+
+
+@pytest.mark.gpu
+def test_batch_of_tenant_questions_equals_them_one_by_one():
+    """Eight tenants' questions as the advisor's `tenants` traffic asks
+    them (a partition of a 20-node BLAST cluster and a proper subset of
+    its chunk sizes x stripe widths) on rows warmed by each partition's
+    whole grid: ONE `explore_batch` call, its rows of one bucket in one
+    launch, answers each question exactly as its own `explore` does."""
+    need_card()
+    st = T.PAPER_RAMDISK
+    parts = (2, 5, 9, 14)
+    grids = {n: T.grid(n_nodes=[20], partitions=[(n, 19 - n)],
+                       chunk_sizes=[256 * 1024, T.MB, 4 * T.MB],
+                       stripe_widths=(0, 1, 4)) for n in parts}
+    wfs = {n: TW.blast(n, n_queries=12, db_mb=64) for n in parts}
+    subsets = [(2, (0, 4, 8)), (5, (1, 2)), (9, (3, 5, 6, 7)), (14, (0,)),
+               (2, (1, 3, 5, 7)), (5, (0, 4, 8)), (9, (2,)), (14, (6, 7, 8))]
+    questions = [T.Question(lambda c, w=wfs[n]: w,
+                            [grids[n][i] for i in idx], verify_top_k=0)
+                 for n, idx in subsets]
+    with T.SweepSession() as sess:
+        for n in parts:                     # warm rows, as the cell's set-up
+            T.explore(lambda c, w=wfs[n]: w, grids[n], st, verify_top_k=0,
+                      session=sess)
+        b0 = sess.stats.batch_calls
+        one_by_one = [T.explore(q.workflow_for, q.candidates, st,
+                                verify_top_k=0, session=sess)
+                      for q in questions]
+        b1, k1 = sess.stats.batch_calls, sess.stats.kernel_launches
+        batched = T.explore_batch(questions, st, locality_aware=True,
+                                  session=sess)
+        assert (b1 - b0, sess.stats.batch_calls - b1) == (len(questions), 1)
+        # one launch a bucket the questions touch, whoever asked
+        buckets = {bucket_of(sess.compile_cache.get(q.workflow_for(c),
+                                                    c.to_config()))
+                   for q in questions for c in q.candidates}
+        assert sess.stats.kernel_launches - k1 == len(buckets)
+    for got, want in zip(batched, one_by_one):
+        assert got == want
+        assert np.array_equal([e.makespan for e in got],
+                              [e.makespan for e in want])
 
 
 @pytest.mark.gpu

@@ -14,6 +14,7 @@ within ``rtol=1e-12``, exact mode's bound), and the planner's output
 against `repro.checkpoint.planner`'s.
 """
 import asyncio
+import dataclasses
 
 import numpy as np
 import pytest
@@ -36,6 +37,7 @@ from repro_torch.core.trace import GenSpec, generate_workflow, to_workflow
 from repro_torch.serve import (AdvisorRequest, AdvisorServer,
                                DeadlineExceeded, QueryKey, ServerClosed,
                                grid_fingerprint, service_digest)
+from repro_torch.serve import server as server_mod
 
 torch.set_num_threads(1)
 
@@ -200,6 +202,132 @@ def test_blast_grid_as_one_request_per_partition():
                           session=sess)
     parts = sorted(m for resp in got[:len(by_app)] for m in resp.makespans)
     assert parts == sorted(e.makespan for e in whole)
+
+
+# ---------------- one engine call for a batch's distinct questions ---------------
+
+FAULTS = T.parse_faults("disk=0:8,kill=1@1")
+
+
+def blast_question(n_app, subset, **kw):
+    """BLAST asked about one partition of a 7-node cluster: the
+    candidates of `serve_grid`'s two chunk sizes x stripe widths 0 and 1
+    that ``subset`` picks, crossed with ``faults=`` where given."""
+    faults = kw.pop("faults", None)
+    cands = T.grid(n_nodes=[7], partitions=[(n_app, 6 - n_app)],
+                   chunk_sizes=[512 * 1024, 1 * T.MB], stripe_widths=(0, 1))
+    cands = [cands[i] for i in subset]
+    if faults is not None:
+        cands = T.with_faults(cands, faults)
+    return AdvisorRequest(
+        workflow=W.blast(n_app, n_queries=8, db_mb=16, per_query_s=1.0),
+        candidates=cands, **kw)
+
+
+def lone(r):
+    """``r`` answered by one `explore` of its own on fresh state."""
+    with T.SweepSession(T.InlineBackend(), device="cpu") as sess:
+        return T.explore(lambda c: r.workflow, r.candidates, ST,
+                         verify_top_k=r.verify_top_k, objective=r.objective,
+                         locality_aware=r.locality_aware, session=sess)
+
+
+def serve_at_once(reqs, monkeypatch):
+    """Submit ``reqs`` concurrently into one admission batch; returns
+    what each got (a response or the exception), the server's counters,
+    the session's, and the question counts of each `explore_batch`."""
+    calls = []
+
+    def spy(questions, *a, **kw):
+        calls.append(len(questions))
+        return T.explore_batch(questions, *a, **kw)
+    monkeypatch.setattr(server_mod, "explore_batch", spy)
+
+    async def main():
+        async with AdvisorServer(ST, batch_window_s=0.25,
+                                 device="cpu") as srv:
+            out = await asyncio.gather(*(srv.submit(r) for r in reqs),
+                                       return_exceptions=True)
+            assert srv.stats.batches == 1
+            return out, srv.stats, srv.session.stats
+    out, stats, sess_stats = asyncio.run(main())
+    return out, stats, sess_stats, calls
+
+
+def test_distinct_questions_of_a_batch_share_one_engine_call(monkeypatch):
+    """Different partitions and subsets, a faulted candidate list that
+    shares its buckets with a healthy one, verified shortlists and both
+    objectives: one engine call, and every answer equal, field by field
+    (order, index in its own list, makespans, cost, verified), to a lone
+    `explore` of its question."""
+    reqs = [blast_question(2, (0, 1, 3), verify_top_k=0),
+            blast_question(3, (0, 1, 2, 3), verify_top_k=2,
+                           objective="cost"),
+            blast_question(2, (1, 2), faults=[None, FAULTS], verify_top_k=1),
+            blast_question(4, (2, 3, 0), verify_top_k=3, objective="cost")]
+    assert len({r.query_key() for r in reqs}) == len(reqs)
+    got, stats, sess_stats, calls = serve_at_once(reqs, monkeypatch)
+    assert calls == [len(reqs)]
+    assert (stats.sweeps, stats.engine_sweeps) == (len(reqs), 1)
+    # one scan-mode call and one exact-mode call for every shortlist
+    assert (sess_stats.batch_calls, sess_stats.exact_batch_calls) == (2, 1)
+    assert any(e.candidate.faults is not None and e.failed
+               for e in got[2].evaluations)
+    for r, resp in zip(reqs, got):
+        assert resp.evaluations == lone(r)
+        assert sorted(e.index for e in resp.evaluations) == \
+            list(range(len(r.candidates)))
+        assert sum(e.verified for e in resp.evaluations) == \
+            min(r.verify_top_k, len(r.candidates))
+        assert (resp.cached, resp.group_size) == (False, 1)
+
+
+def test_identical_questions_in_a_shared_call_still_coalesce(monkeypatch):
+    a, b = blast_question(2, (0, 1)), blast_question(3, (2, 3))
+    reqs = [a, b, dataclasses.replace(a, client="twin"), blast_question(2, (3,))]
+    got, stats, _, calls = serve_at_once(reqs, monkeypatch)
+    assert calls == [3]
+    assert (stats.sweeps, stats.engine_sweeps, stats.coalesced) == (3, 1, 1)
+    assert stats.responses == len(reqs) and stats.errors == 0
+    assert [r.group_size for r in got] == [2, 1, 2, 1]
+    assert got[0].evaluations is got[2].evaluations
+    for r, resp in zip(reqs, got):
+        assert resp.evaluations == lone(r)
+
+
+def test_question_that_fails_to_compile_fails_alone(monkeypatch):
+    """A 3-client workflow asked of a 2-app-node partition cannot
+    compile: the shared call raises, each question is swept alone, and
+    only the bad one's ticket gets the error."""
+    good_a, good_b = blast_question(2, (0, 2)), blast_question(3, (1, 3))
+    bad = dataclasses.replace(blast_question(2, (1,)),
+                              workflow=W.blast(3, n_queries=8, db_mb=16))
+    got, stats, _, calls = serve_at_once([good_a, bad, good_b], monkeypatch)
+    assert isinstance(got[1], IndexError)
+    assert got[0].evaluations == lone(good_a)
+    assert got[2].evaluations == lone(good_b)
+    # the shared call, then one a question
+    assert calls == [3, 1, 1, 1]
+    assert (stats.sweeps, stats.engine_sweeps, stats.errors) == (3, 4, 1)
+    assert stats.responses == 2
+
+
+def test_lone_question_takes_the_explore_path(monkeypatch):
+    """One distinct question in a batch is one engine call of one
+    question, which runs `explore`'s own sweep: its answer equals a lone
+    `explore`. So is each of two questions that differ in
+    ``locality_aware`` (which changes the compile)."""
+    a = blast_question(2, (0, 1, 2), verify_top_k=1)
+    for reqs in ([a, dataclasses.replace(a, client="twin")],
+                 [a, dataclasses.replace(blast_question(3, (0, 1)),
+                                         locality_aware=False)]):
+        got, stats, sess_stats, calls = serve_at_once(reqs, monkeypatch)
+        n = len({r.query_key() for r in reqs})
+        assert calls == [1] * n
+        assert (stats.sweeps, stats.engine_sweeps) == (n, n)
+        assert sess_stats.batch_calls == 2 * n    # a scan and an exact call
+        for r, resp in zip(reqs, got):
+            assert resp.evaluations == lone(r)
 
 
 def test_deadline_expired_fails_cleanly():

@@ -56,8 +56,9 @@ def question(n_queries, **kw):
         candidates=serve_grid(), **kw)
 
 
-def serve(tracer, reqs, *, repeat_first=False):
-    """Answer ``reqs`` concurrently on a fresh CPU session, then (with
+def serve(tracer, reqs, *, repeat_first=False, one_by_one=False):
+    """Answer ``reqs`` concurrently (with ``one_by_one``, each after the
+    one before has its answer) on a fresh CPU session, then (with
     ``repeat_first``) ask the first again; returns the responses, the
     compiles made, and the engine's and DAG cache's counters."""
     async def main():
@@ -65,8 +66,11 @@ def serve(tracer, reqs, *, repeat_first=False):
         async with AdvisorServer(ST, session=sess,
                                  batch_window_s=0.05) as srv:
             n0 = compile_count()
-            resps = list(await asyncio.gather(*(srv.submit(r)
-                                                for r in reqs)))
+            if one_by_one:
+                resps = [await srv.submit(r) for r in reqs]
+            else:
+                resps = list(await asyncio.gather(*(srv.submit(r)
+                                                    for r in reqs)))
             if repeat_first:
                 resps.append(await srv.submit(reqs[0]))
             stats = (dataclasses.asdict(sess.stats),
@@ -145,30 +149,51 @@ def test_request_scopes_of_many_threads_do_not_mix():
 
 # -- the advisor service ---------------------------------------------------------
 
-def test_each_request_has_its_wait_and_sweep_under_one_id():
+@pytest.mark.parametrize("batches", ["separate", "shared"])
+def test_each_request_has_its_wait_and_sweep_under_one_id(batches):
+    """Two distinct questions. Asked one after the other, each has its
+    own wait and its own sweep of one question under its id. Asked at
+    once, they land in one batch and share one engine call: one
+    ``serve.sweep`` under the first ticket's id, with ``questions`` 2
+    and the candidates summed; each ticket's wait ends before it starts,
+    and the call's compile, prep and sim spans lie inside it."""
     tr = Tracer()
-    resps, _, _ = serve(tr, [question(8, client="a"), question(10, client="b")])
+    resps, _, _ = serve(tr, [question(8, client="a"),
+                             question(10, client="b")],
+                        one_by_one=batches == "separate")
     assert not any(r.cached for r in resps)
     spans = tr.spans()
     assert all("req" in meta(s) for s in spans)
     rids = sorted({meta(s)["req"] for s in spans})
     assert rids == [1, 2]
+    sweeps = [s for s in spans if s.name == "serve.sweep"]
+    if batches == "separate":
+        assert [meta(s) for s in sweeps] == [
+            {"req": rid, "questions": 1, "candidates": 2, "group": 1}
+            for rid in rids]
+    else:
+        assert [meta(s) for s in sweeps] == [
+            {"req": 1, "questions": 2, "candidates": 4, "group": 2}]
     for rid, client in zip(rids, "ab"):
         mine = [s for s in spans if meta(s)["req"] == rid]
         (request,) = [s for s in mine if s.name == "serve.request"]
         (wait,) = [s for s in mine if s.name == "serve.wait"]
-        (sweep,) = [s for s in mine if s.name == "serve.sweep"]
+        (sweep,) = [s for s in sweeps if s.name == "serve.sweep"
+                    and meta(s)["req"] == (rid if batches == "separate"
+                                           else 1)]
         assert meta(request) == {"req": rid, "client": client,
                                  "cached": False, "group": 1}
-        assert meta(sweep) == {"req": rid, "candidates": 2, "group": 1}
         assert wait.start == pytest.approx(request.start, abs=EPS)
         assert wait.end <= sweep.start + EPS and inside(sweep, request)
         assert wait.dur + sweep.dur <= request.dur + EPS
-        work = [s for s in mine if s.name in SWEEP_CHILDREN
-                or s.name.startswith(("prep[", "sim["))]
-        names = {s.name.split("[")[0] for s in work}
+    work = [s for s in spans if s.name in SWEEP_CHILDREN
+            or s.name.startswith(("prep[", "sim["))]
+    for sweep in sweeps:
+        its = [s for s in work if meta(s)["req"] == meta(sweep)["req"]]
+        names = {s.name.split("[")[0] for s in its}
         assert {"compile_grid", "compile_dag", "prep", "sim"} <= names
-        assert all(inside(s, sweep) for s in work)
+        assert all(inside(s, sweep) for s in its)
+    assert {meta(s)["req"] for s in work} == {meta(s)["req"] for s in sweeps}
 
 
 def test_coalesced_siblings_each_record_their_wait():
